@@ -1,22 +1,14 @@
-"""fastest_image_pattern_matching_tpu — a TPU-native (JAX/XLA/Pallas)
-rotation-invariant template-matching framework.
+"""fastest_image_pattern_matching_tpu — a JAX/XLA rotation-invariant
+template-matching framework for accelerators.
 
 Same capability surface as the reference C++ tool
 (lrm2017/Fastest_Image_Pattern_Matching): image-pyramid coarse-to-fine
 normalized cross-correlation with rotation search, subpixel (x, y, theta)
 refinement, multi-target greedy peak extraction, rotated-rect NMS, plus an
-ORB feature-matching secondary path — redesigned TPU-first: batched MXU
-correlation, vmapped warps, on-device reductions, mesh sharding.
+ORB feature-matching secondary path — redesigned for an accelerator:
+batched matmul/conv correlation, vmapped warps, on-device reductions, mesh
+sharding.
 """
-
-import os as _os
-
-if _os.environ.get("FIPM_STABLE_CACHE_KEYS", "1") != "0":
-    # Make persistent-cache keys deterministic for Pallas programs (the
-    # Mosaic payload embeds process-history-dependent debug info; see
-    # utils/cache_keys.py). Hash-only — compiled programs are untouched.
-    from .utils.cache_keys import install_stable_pallas_cache_keys as _iscc
-    _iscc()
 
 from .config import MatchConfig
 from .types import LearnedPattern, MatchResult

@@ -1,4 +1,4 @@
-"""Headless CLI — the TPU build's replacement for the reference GUI apps.
+"""Headless CLI — this library's replacement for the reference GUI apps.
 
 Mirrors the Qt entry's flags (-s/--source, -t/--template, src/main.cpp:29-63)
 and exposes every matching parameter of the dialogs (MatchToolDlg.cpp:108-117
@@ -18,10 +18,10 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="fipm-tpu",
-        description="TPU-native rotation-invariant template matching")
+        prog="fipm",
+        description="rotation-invariant template matching on an accelerator")
     p.add_argument("--platform", default=None,
-                   help="override jax platform (e.g. cpu, tpu)")
+                   help="override jax platform (e.g. cpu, cuda)")
     sub = p.add_subparsers(dest="command", required=True)
 
     m = sub.add_parser("match", help="find template instances in a source image")
@@ -507,20 +507,14 @@ def _cmd_watch(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    import os
     import jax
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     # Persistent compile cache: with it, a fresh CLI process's first match
     # costs cache deserialization, not a recompile (pair with aot-export
-    # to also skip tracing). FIPM_CACHE_DIR overrides; empty disables.
-    cache = os.environ.get("FIPM_CACHE_DIR",
-                           os.path.expanduser("~/.cache/fipm-tpu/jax"))
-    if cache:
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    # to also skip tracing).
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.command == "match":
         return _cmd_match(args)
     if args.command == "settings":

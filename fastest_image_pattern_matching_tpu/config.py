@@ -4,7 +4,7 @@ A typed mirror of the reference tool's user parameters and checkboxes
 (reference: MatchTool/MatchToolDlg.cpp:108-117 validation ranges;
 ui/MatchToolDialog.ui:103-270 defaults; MatchToolDlg.h:279-342 checkboxes).
 
-TPU-specific knobs (compute dtype, candidate capacity) are additions that do
+Accelerator knobs (compute dtype, candidate capacity) are additions that do
 not exist in the reference; their defaults preserve reference semantics.
 """
 
@@ -45,7 +45,7 @@ class MatchConfig:
     #     MatchToolDlg.cpp:805-816) ---
     tolerance_ranges: Optional[Tuple[float, float, float, float]] = None
 
-    # --- TPU-native knobs (not in reference) ---
+    # --- accelerator knobs (not in reference) ---
     # Max refinement candidates carried through the pyramid descent. The
     # reference refines every top-layer candidate (MatchToolDlg.cpp:939);
     # None = the same: keep all n_angles*(max_pos+5) extracted peaks
@@ -55,7 +55,7 @@ class MatchConfig:
     # trade recall parity for speed (keeps the top scorers, sorted like
     # the reference sorts at :890).
     max_candidates: Optional[int] = None
-    # Correlation compute dtype on the MXU: "bf16" (default; u8-centered
+    # Correlation compute dtype: "bf16" (default; u8-centered
     # inputs are exact in bf16, f32 accumulation), "f32", or "int8".
     compute_dtype: str = "bf16"
     # Round warped canvases to integers, emulating the reference's u8

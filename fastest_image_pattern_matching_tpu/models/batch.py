@@ -3,13 +3,12 @@ per dispatch.
 
 The reference's deployment mode is a repeated-Execute loop over camera
 frames (MatchTool/MatchToolDlg.cpp:714; src/CameraPreviewDialog.cpp:84-131
-feeds frames to the same matcher). On TPU the per-dispatch round trip
-dominates small matches, so the serving-shape API runs B frames through
-ONE compiled program (lax.map over frames — the Pallas warp kernel takes
-its source as a whole-array operand, so map rather than vmap, exactly as
-the sharded matcher does) and returns results [B, max_pos, ...] in a
-single host transfer. Per-frame cost therefore amortizes to the on-chip
-compute time; this module is the user-reachable path for that number.
+feeds frames to the same matcher). Per-dispatch overhead dominates small
+matches, so the serving-shape API runs B frames through ONE compiled
+program (lax.map over frames, as the sharded matcher does) and returns
+results [B, max_pos, ...] in a single host transfer. Per-frame cost
+therefore amortizes to the device compute time; this module is the
+user-reachable path for that number.
 
 Glyph-batched matching (match_patterns) is the same idea along the
 template axis: the reference's OCR demo loops 36 glyph patterns over one

@@ -2,8 +2,8 @@
 
 The reference ships an OCR demo: a disabled 36-glyph loop over the
 `Test Images/M12/` character templates, matching each glyph pattern
-against the source in turn (MatchTool/MatchToolDlg.cpp:714-771). The TPU
-build makes this a first-class API: learn N patterns once, match them
+against the source in turn (MatchTool/MatchToolDlg.cpp:714-771). This
+library makes this a first-class API: learn N patterns once, match them
 against one source, label results, and resolve cross-template overlaps
 globally (same greedy rotated-rect NMS, but across templates).
 """
@@ -61,7 +61,7 @@ class MultiTemplateMatcher:
                   batched: bool = True) -> List[LabeledMatch]:
         """batched=True (default) runs same-shaped glyph patterns through
         one compiled dispatch per shape group with the source pyramid
-        hoisted (models.batch.match_patterns) — the TPU answer to the
+        hoisted (models.batch.match_patterns) — the batched answer to the
         reference's 36-dispatch glyph loop. batched=False keeps the
         per-glyph path for A/B."""
         labels, pats = [], []

@@ -1,6 +1,6 @@
 """Threaded batch image loader (native decode threads + ordered take).
 
-The TPU-era analogue of the reference's camera grabber thread
+The analogue of the reference's camera grabber thread
 (QImageAcquisition, src/CameraPreviewDialog.cpp:42-131): decode on CPU
 threads while the device crunches the previous batch.
 """

@@ -1,9 +1,9 @@
-// fipm_native — C++ runtime components for the TPU pattern-matching
+// fipm_native — C++ runtime components for the JAX pattern-matching
 // framework: BMP codec, threaded batch image loader, and host-side
 // post-processing (greedy peak extraction + rotated-rect NMS oracle).
 //
-// The reference's runtime is C++ end to end; in the TPU build the compute
-// path is XLA/Pallas and this library supplies the native runtime around
+// The reference's runtime is C++ end to end; here the compute path is
+// JAX/XLA on the accelerator and this library supplies the native runtime around
 // it: zero-dependency image IO (the reference reads BMPs via OpenCV,
 // MatchToolDlg.cpp:506-525), a prefetching data loader for corpus
 // inspection (the reference's camera grabber thread analogue,

@@ -6,7 +6,7 @@ intersection polygon (cv::rotatedRectangleIntersection + SortPtWithCenter +
 contourArea) and deletes the lower-scored one when fully contained or when
 intersection_area / template_area > max_overlap.
 
-TPU formulation: pair intersection areas are computed with a vmapped
+Batched formulation: pair intersection areas are computed with a vmapped
 fixed-size Sutherland–Hodgman clip (convex quad vs convex quad -> at most
 8 vertices), row-chunked with all-invalid-chunk skipping so cost scales
 with n_valid * C rather than C^2 (the uncapped default carries up to 2048
@@ -24,10 +24,13 @@ import jax.numpy as jnp
 
 # Vertex-buffer capacity: clipping a convex polygon by a half-plane adds
 # at most one vertex, so 4 initial vertices + 4 clip planes bound the
-# intersection polygon at 8 (also the classic quad-quad bound). Round 5:
-# was 12 (conservative) — the one-hot masks scale quadratically, so 8
-# cuts the per-pair clip cost ~2x.
+# intersection polygon at 8 (also the classic quad-quad bound); the
+# one-hot masks below scale quadratically with it.
 _MAXV = 8
+
+# The one-hot selections below move f32 coordinates of up to a few
+# thousand pixels; a TF32 product would round them to 2 px steps.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _clip_halfplane(pts, cnt, a, b):
@@ -37,8 +40,7 @@ def _clip_halfplane(pts, cnt, a, b):
     Gather/scatter-free: the ring successor and the compaction write are
     tiny one-hot contractions ([N,N] masks x [N,2] points), so the whole
     clip vectorizes cleanly under vmap over millions of candidate pairs
-    (a vmapped 12-element scatter lowered to ~9 us/pair on TPU; the
-    one-hot form is pure VPU broadcast arithmetic)."""
+    with no per-pair scatter."""
     n = pts.shape[0]
     idx = jnp.arange(n)
     cur = pts
@@ -46,7 +48,7 @@ def _clip_halfplane(pts, cnt, a, b):
     # Ring successor as a one-hot contraction: nxt[i] = pts[(i+1) % cnt].
     succ = jnp.where(idx + 1 >= cnt, 0, idx + 1)
     nxt_oh = (idx[None, :] == succ[:, None]).astype(pts.dtype)  # [n, n]
-    nxt = nxt_oh @ pts
+    nxt = jnp.matmul(nxt_oh, pts, precision=_HIGHEST)
 
     ex, ey = b[0] - a[0], b[1] - a[1]
 
@@ -79,7 +81,8 @@ def _clip_halfplane(pts, cnt, a, b):
              ).astype(pts.dtype)  # [p, i]
     w_int = ((pos_int[None, :] == idx[:, None]) & emit_int[None, :]
              ).astype(pts.dtype)
-    out = w_cur @ cur + w_int @ inter
+    out = (jnp.matmul(w_cur, cur, precision=_HIGHEST)
+           + jnp.matmul(w_int, inter, precision=_HIGHEST))
     new_cnt = jnp.sum(counts)
     return out, new_cnt
 
@@ -97,7 +100,8 @@ def quad_intersection_area(quad_a: jnp.ndarray, quad_b: jnp.ndarray):
     n = pts.shape[0]
     idx = jnp.arange(n)
     succ = jnp.where(idx + 1 >= cnt, 0, idx + 1)
-    nxt = (idx[None, :] == succ[:, None]).astype(pts.dtype) @ pts
+    nxt = jnp.matmul((idx[None, :] == succ[:, None]).astype(pts.dtype), pts,
+                     precision=_HIGHEST)
     cross = pts[:, 0] * nxt[:, 1] - nxt[:, 0] * pts[:, 1]
     cross = jnp.where(idx < cnt, cross, 0.0)
     area = 0.5 * jnp.abs(jnp.sum(cross))

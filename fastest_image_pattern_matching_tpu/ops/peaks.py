@@ -13,8 +13,8 @@ Two exact implementations, same results:
   the rounds. Identical to the reference's greedy order (row-major first-max
   tie-break, matching cv::minMaxLoc).
 
-* Tiled BlockMax (`_extract_peaks_tiled`): the s_BlockMax idea in its native
-  TPU shape for the single-angle many-target regime (tol=0 over a large
+* Tiled BlockMax (`_extract_peaks_tiled`): the s_BlockMax idea in a
+  fixed-shape form for the single-angle many-target regime (tol=0 over a large
   full-resolution map, README.md:23-29). The map is tiled into
   suppression-rect-sized blocks; a per-tile (max, first-flat-index) cache is
   maintained, each round reduces over the ~10^3 tile maxes instead of the

@@ -6,14 +6,14 @@ The reference builds template and source pyramids with cv::buildPyramid
 subsample, output size ((n+1)/2), and for u8 inputs fixed-point rounding
 ((sum + 128) >> 8 of the integer-weighted 2D sum).
 
-TPU mapping: one 5x5 stride-2 convolution per level. The integer 2D sum is
-at most 255*256 = 65280 < 2^24, so f32 convolution is exact and we can use
-the fast conv path and round at the end.
+Device form: the 25-tap stride-2 stencil as shifted strided slices, which
+XLA fuses into one memory-bound kernel. The integer 2D sum is at most
+255*256 = 65280 < 2^24, so every f32 partial sum is exact and no matmul
+precision (TF32 on the GPU) is involved.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List
 
 import jax
@@ -29,23 +29,14 @@ def _reflect101_pad2(x: jnp.ndarray) -> jnp.ndarray:
     return jnp.pad(x, ((2, 2), (2, 2)), mode="reflect")
 
 
-def _downsample_matrix(n_out: int, n_padded: int) -> jnp.ndarray:
-    """Banded stride-2 5-tap matrix S [n_out, n_padded]: S[r, c] =
-    kernel[c - 2r] (integer weights 1,4,6,4,1). Built from iota compares on
-    device — never materialized as a compile-time constant."""
-    r = jax.lax.broadcasted_iota(jnp.int32, (n_out, n_padded), 0)
-    c = jax.lax.broadcasted_iota(jnp.int32, (n_out, n_padded), 1)
-    d = c - 2 * r
-    s = jnp.zeros((n_out, n_padded), jnp.float32)
-    for k in range(5):
-        s = s + jnp.where(d == k, jnp.float32(_KERNEL_1D[k]), 0.0)
-    return s
+def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
+    """One cv::pyrDown step on a 2D u8/f32 image; returns u8-valued f32.
 
-
-def pyr_down_slices(img: jnp.ndarray) -> jnp.ndarray:
-    """Stencil formulation: 25 shifted stride-2 slices on the VPU. Exact,
-    but stride-2 slices along the lane dim force relayouts on TPU (~24 ms
-    for a 12 MP level — measured); kept as the reference/fallback path."""
+    Output shape ((h+1)//2, (w+1)//2); values are exactly cv2.pyrDown's
+    u8 results (tests/test_pyramid.py; on the GPU, chip_smoke.py checks
+    the full 7-level pyramid of a 3036x4024 frame bit for bit). On the
+    H100 this stencil beat the former banded-matmul form (two f32
+    matmuls at HIGHEST) about 4x (PERF.md)."""
     h, w = img.shape
     oh, ow = (h + 1) // 2, (w + 1) // 2
     x = _reflect101_pad2(img.astype(jnp.float32))
@@ -57,43 +48,7 @@ def pyr_down_slices(img: jnp.ndarray) -> jnp.ndarray:
                                (2, 2))
             out = out + wgt * sl
     # Fixed-point cast: (sum + 128) >> 8 on the integer sum.
-    out = jnp.floor((out + 128.0) / 256.0)
-    return out
-
-
-def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
-    """One cv::pyrDown step on a 2D u8/f32 image; returns u8-valued f32.
-
-    Output shape ((h+1)//2, (w+1)//2); values are exactly cv2.pyrDown's
-    u8 results (validated in tests/test_pyramid.py and on-chip vs the
-    stencil path).
-
-    Formulation: the separable 5-tap stride-2 stencil as two banded
-    matmuls, Sv @ xpad @ Sh^T — stride-2 slicing is lane-relayout-hostile
-    on TPU while the MXU eats banded matmuls. The /256 rounding happens
-    once at the end, as in OpenCV's fixed-point path.
-
-    Precision (round 5 — 4.6x on the 7-level flagship pyramid, 1.91 ->
-    0.41 ms, /tmp job 014; exactness asserted on-chip incl. adversarial
-    checkerboard/saturated inputs):
-      * pass 1 at DEFAULT (one bf16 MXU pass): u8 inputs (8-bit) and
-        integer weights <= 6 are exact in bf16; products <= 1530 and
-        row sums <= 1,040,400 < 2^24 accumulate exactly in f32.
-      * pass 2 at HIGH (bf16x3): y holds <= 21-bit integers — the
-        residual bf16 split represents them exactly (3 x 8 mantissa
-        bits), products <= 2^24 and the all-nonnegative sums peak at
-        the final value 65280 — every step f32-exact.
-    On CPU both flags are no-ops (native f32), so goldens are unchanged.
-    """
-    h, w = img.shape
-    oh, ow = (h + 1) // 2, (w + 1) // 2
-    x = _reflect101_pad2(img.astype(jnp.float32))
-    sv = _downsample_matrix(oh, h + 4)
-    sh = _downsample_matrix(ow, w + 4)
-    y = jnp.matmul(sv, x, precision=jax.lax.Precision.DEFAULT)
-    out = jnp.matmul(y, sh.T, precision=jax.lax.Precision.HIGH)
-    out = jnp.floor((out + 128.0) / 256.0)
-    return out
+    return jnp.floor((out + 128.0) / 256.0)
 
 
 def build_pyramid(img: jnp.ndarray, levels: int) -> List[jnp.ndarray]:

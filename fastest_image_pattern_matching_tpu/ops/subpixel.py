@@ -5,7 +5,7 @@ score neighborhood with a 27x10 normal-equations least squares and solves a
 3x3 system for the stationary point (SubPixEsimation,
 MatchTool/MatchToolDlg.cpp:1149-1221).
 
-TPU formulation: the fit is affine-equivariant, so we fit in *centered,
+Batched formulation: the fit is affine-equivariant, so we fit in *centered,
 normalized* coordinates (x, y in {-1,0,1}; theta scaled to {-1,0,1}) where
 the design matrix is a fixed, perfectly-conditioned constant. Its
 pseudo-inverse is precomputed once in float64 and the per-candidate solve
@@ -16,6 +16,7 @@ batched over candidates with vmap.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -48,7 +49,8 @@ def subpixel_refine(patches: jnp.ndarray, step_rad) -> jnp.ndarray:
     is guaranteed via a determinant guard (degenerate fits -> zero offset).
     """
     s = patches.reshape(*patches.shape[:-3], 27)
-    z = jnp.einsum("ij,...j->...i", jnp.asarray(_PINV, dtype=jnp.float32), s)
+    z = jnp.einsum("ij,...j->...i", jnp.asarray(_PINV, dtype=jnp.float32), s,
+                   precision=jax.lax.Precision.HIGHEST)
     k0, k1, k2, k3, k4, k5, k6, k7, k8, _ = [z[..., i] for i in range(10)]
 
     # Solve [2k0 k3 k4; k3 2k1 k5; k4 k5 2k2] d = -[k6 k7 k8]

@@ -1,8 +1,8 @@
-"""Batched affine warps as one vmapped bilinear gather.
+"""Batched affine warps as one bilinear gather.
 
 The reference warps the source once per angle with cv::warpAffine
 (INTER_LINEAR + BORDER_CONSTANT; MatchTool/MatchToolDlg.cpp:856 for the
-top-layer canvas, :1327 for refinement ROIs). On TPU the per-angle loop
+top-layer canvas, :1327 for refinement ROIs). Here the per-angle loop
 becomes a single batched gather over an [A, Ho, Wo] coordinate grid with
 static shapes — per-angle canvas-size differences are handled by masking
 downstream, not by dynamic shapes.
@@ -28,6 +28,10 @@ def warp_affine_batch(
     fixed_point_frac: bool = False,
 ) -> jnp.ndarray:
     """Bilinear-sample `src` at A affine grids -> [A, Ho, Wo] f32.
+
+    Four per-tap gathers, the blend and the rounding, which XLA fuses into
+    one memory-bound kernel on the GPU. On the H100 this beat a one-gather
+    (2,2)-slice form and a hand-written Pallas/Triton kernel (PERF.md).
 
     `quantize` rounds the result to integers, emulating the reference's u8
     warped mats. fixed_point_frac emulates OpenCV <= 4.x's 10-bit fixed-point
@@ -94,85 +98,6 @@ def warp_affine_batch(
     if quantize:
         out = jnp.round(out)
     return out
-
-
-def warp_affine_batch_sliced(
-    src: jnp.ndarray,            # [H, W] f32
-    inv_mats: jnp.ndarray,       # [A, 2, 3] f32
-    out_hw: Tuple[int, int],
-    border_value,                # scalar
-    quantize: bool = True,
-) -> jnp.ndarray:
-    """Gather-based warp using one lax.gather of (2,2) slices per output
-    pixel (4x fewer gather rows than per-tap indexing). Border handled by
-    pre-padding with the border value, so every slice is in bounds."""
-    H, W = src.shape
-    Ho, Wo = out_hw
-    A = inv_mats.shape[0]
-    padded = jnp.pad(src, 2, constant_values=jnp.float32(border_value))
-
-    xs = jax.lax.broadcasted_iota(jnp.float32, (Ho, Wo), 1)
-    ys = jax.lax.broadcasted_iota(jnp.float32, (Ho, Wo), 0)
-    a = inv_mats[:, 0, 0][:, None, None]
-    b = inv_mats[:, 0, 1][:, None, None]
-    tx = inv_mats[:, 0, 2][:, None, None]
-    c = inv_mats[:, 1, 0][:, None, None]
-    d = inv_mats[:, 1, 1][:, None, None]
-    ty = inv_mats[:, 1, 2][:, None, None]
-    fx = jnp.clip(a * xs + b * ys + tx, -2.0, W + 1.0)
-    fy = jnp.clip(c * xs + d * ys + ty, -2.0, H + 1.0)
-    x0f = jnp.floor(fx)
-    y0f = jnp.floor(fy)
-    ax = (fx - x0f).reshape(A * Ho * Wo)
-    ay = (fy - y0f).reshape(A * Ho * Wo)
-    # Start indices in the padded frame, clamped so (2,2) fits.
-    xi = jnp.clip(x0f.astype(jnp.int32) + 2, 0, W + 2).reshape(-1)
-    yi = jnp.clip(y0f.astype(jnp.int32) + 2, 0, H + 2).reshape(-1)
-    starts = jnp.stack([yi, xi], axis=1)                   # [N, 2]
-    dnums = jax.lax.GatherDimensionNumbers(
-        offset_dims=(1, 2), collapsed_slice_dims=(),
-        start_index_map=(0, 1))
-    tiles = jax.lax.gather(
-        padded, starts, dnums, slice_sizes=(2, 2),
-        mode=jax.lax.GatherScatterMode.CLIP)               # [N, 2, 2]
-    v = ((1 - ax) * (1 - ay) * tiles[:, 0, 0]
-         + ax * (1 - ay) * tiles[:, 0, 1]
-         + (1 - ax) * ay * tiles[:, 1, 0]
-         + ax * ay * tiles[:, 1, 1])
-    out = v.reshape(A, Ho, Wo)
-    if quantize:
-        out = jnp.round(out)
-    return out
-
-
-def warp_affine_dispatch(
-    src: jnp.ndarray,
-    inv_mats: jnp.ndarray,
-    out_hw: Tuple[int, int],
-    border_value,
-    quantize: bool = True,
-    impl: str = "gather",
-) -> jnp.ndarray:
-    """Route between warp implementations:
-    - "gather": per-tap XLA gather (safe everywhere; slow on TPU)
-    - "sliced": one (2,2)-slice XLA gather per output pixel (safe, ~4x
-      fewer gather rows)
-    - "pallas": matmul-interpolation Mosaic kernel (fastest on TPU)
-    """
-    if impl == "pallas":
-        from .pallas.warp_kernel import warp_affine_pallas
-        return warp_affine_pallas(src, inv_mats, out_hw,
-                                  float(border_value), quantize=quantize)
-    if impl == "sliced":
-        return warp_affine_batch_sliced(src, inv_mats, out_hw, border_value,
-                                        quantize=quantize)
-    if impl != "gather":
-        # A typo (e.g. via FIPM_WARP_IMPL) must fail loudly, not silently
-        # degrade to the slow gather path.
-        raise ValueError(f"unknown warp impl {impl!r} "
-                         "(expected gather|sliced|pallas)")
-    return warp_affine_batch(src, inv_mats, out_hw, border_value,
-                             quantize=quantize)
 
 
 def rotate_pt_jnp(pt: jnp.ndarray, org, angle_rad) -> jnp.ndarray:

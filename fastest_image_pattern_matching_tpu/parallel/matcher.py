@@ -12,15 +12,13 @@ Composition of the same stage functions as the single-chip program
       -> results sharded over 'data'
 
 The template pyramid and per-angle constants are replicated; cross-device
-traffic is two tiny peak/candidate lists riding ICI. Both the top-layer
-sweep AND the pyramid descent (the dominant on-chip cost, PROFILE_r03)
-scale with the angle axis; only finalize's NMS is replicated within an
-angle group — deliberately: the greedy suppression is sequential in
-score order (each round's decisions feed the next), so sharding it
-would trade a ~1-3 ms stage whose cost now scales with n_valid^2
-(ops/nms.py two-axis chunk skipping) for per-round ICI round trips on
-the decision masks. Replication is the faster design at every measured
-candidate count (PROFILE_r05: finalize <=1 ms on the flagship). This completes SURVEY §7 step 7: images and candidate
+traffic is two tiny peak/candidate lists. Both the top-layer sweep AND
+the pyramid descent scale with the angle axis; only finalize's NMS is
+replicated within an angle group — deliberately: the greedy suppression
+is sequential in score order (each round's decisions feed the next), so
+sharding it would trade a stage whose cost scales with n_valid^2
+(ops/nms.py two-axis chunk skipping) for per-round collectives on the
+decision masks. This completes SURVEY §7 step 7: images and candidate
 angles sharded data-parallel, per-shard work, all_gather merge.
 
 Exactness vs single-chip: candidates are descended independently (same
@@ -109,11 +107,10 @@ def build_sharded_match(plan: _Plan, ekey, mesh: Mesh):
             vals, locs = st.sweep_maps(pyr[top], templs[top], inv_l, valid_l)
             return vals, locs, pyr
 
-        # lax.map (not vmap): the Pallas warp kernel takes its source as a
-        # whole-array HBM operand, which cannot carry a vmap batch dim;
-        # map keeps per-image bodies unbatched (images per device are few).
+        # lax.map (not vmap): keeps per-image bodies unbatched (images per
+        # device are few), bounding live memory to one image's sweep.
         vals, locs, pyr = jax.lax.map(one_image_sweep, srcs_l)
-        # Merge peak lists across the angle axis (ICI all_gather; axis 1 is
+        # Merge peak lists across the angle axis (all_gather; axis 1 is
         # the angle dim of [Bl, a_local, K]).
         vals_g = jax.lax.all_gather(vals, ANGLE_AXIS, axis=1, tiled=True)
         locs_g = jax.lax.all_gather(locs, ANGLE_AXIS, axis=1, tiled=True)

@@ -1,10 +1,11 @@
 """Device mesh construction for sharded matching.
 
 The reference is strictly single-box (SURVEY.md §2: no MPI/NCCL/multi-
-process anywhere); the distribution layer is TPU-native by design:
+process anywhere); the distribution layer is a JAX mesh:
   mesh axes ('data', 'angle') — inspection images sharded over 'data',
   the top-layer angle sweep sharded over 'angle', template pyramid
-  replicated, per-shard peak lists merged with all_gather over ICI.
+  replicated, per-shard peak lists merged with all_gather (NVLink between
+  the GPUs of a host, all to all: the mesh shape follows the algorithm).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Core data types: learned pattern, match results.
 
-TPU mapping of the reference structs:
+Mapping of the reference structs:
   - LearnedPattern  <- s_TemplData  (MatchTool/MatchToolDlg.h:14-42)
   - MatchResult     <- s_SingleTargetMatch (MatchToolDlg.h:83-88)
 Per-level statistics are computed once at learn time in float64 on the host
@@ -31,7 +31,7 @@ class LearnedPattern:
     """Learned template pyramid + stats (s_TemplData equivalent).
 
     Serializable via save()/load() — the reference keeps this only in RAM;
-    a persistent artifact is part of the TPU build's checkpointing story
+    a persistent artifact is part of this library's checkpointing story
     (SURVEY.md §5).
     """
     levels: List[LevelData]

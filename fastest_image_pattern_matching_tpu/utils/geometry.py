@@ -2,7 +2,7 @@
 
 These functions run at trace/plan time — they only depend on static image
 shapes and the angle schedule, never on pixel data, so they stay in numpy
-and their results are baked into the compiled TPU program as static shapes
+and their results are baked into the compiled program as static shapes
 or passed as small constant arrays.
 
 Reference semantics:

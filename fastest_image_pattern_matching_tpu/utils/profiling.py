@@ -2,7 +2,7 @@
 
 The reference's only instrumentation is wall-clock around Match()
 (MatchToolDlg.cpp:783,1072; chrono in src/TemplateMatcher.cpp:117,402).
-The TPU build provides: stage timers (host wall-clock with device sync),
+This library provides: stage timers (host wall-clock with device sync),
 a jax.profiler trace context for TensorBoard-style device traces, and a
 simple structured event log.
 """

@@ -2,7 +2,7 @@
 
 The reference persists almost nothing (SURVEY.md §5): QSettings UI params,
 an optional ORB yaml (ORBFeatureMatcher.cpp:420-441), and matched-ROI bmp
-dumps (OutputRoi, MatchToolDlg.cpp:1223-1236). The TPU build makes records
+dumps (OutputRoi, MatchToolDlg.cpp:1223-1236). This library makes records
 first-class: JSON/JSONL writers for match lists and ORB results, plus ROI
 dumps via the native BMP encoder.
 """

@@ -3,7 +3,7 @@
 The reference's camera stack (C14: QImageAcquisition worker thread +
 CameraPreviewDialog over the binary DVP vendor SDK,
 src/CameraPreviewDialog.cpp:42-131, include/CameraPreviewDialog.h) is
-vendor-binary-bound; the TPU build keeps the *abstraction*: a FrameSource
+vendor-binary-bound; this library keeps the *abstraction*: a FrameSource
 protocol that a real grabber can implement, plus file/folder/synthetic
 sources used by the CLI and the corpus pipeline. The native threaded
 BatchLoader plays the grabber-thread role (decode on CPU while the device

@@ -1,12 +1,12 @@
 """Test oracle: a direct OpenCV-based implementation of the reference's
 Match() pipeline (MatchTool/MatchToolDlg.cpp:772-1148), used ONLY to
-cross-validate the TPU implementation end-to-end.
+cross-validate the JAX implementation end-to-end.
 
 Uses cv2's own primitives exactly like the reference does — buildPyramid,
 getRotationMatrix2D/warpAffine, matchTemplate(TM_CCOEFF_NORMED) (== the
 reference's TM_CCORR + CCOEFF_Denominator), minMaxLoc, and
 rotatedRectangleIntersection — so agreement between this oracle and the
-JAX/Pallas pipeline demonstrates behavioral parity with the reference
+JAX pipeline demonstrates behavioral parity with the reference
 algorithm independent of our own recorded goldens.
 """
 
@@ -90,7 +90,7 @@ def oracle_match(src: np.ndarray, templ: np.ndarray, max_pos=10,
                  fast_mode=False, tolerance_ranges=None) -> List[OracleMatch]:
     """fast_mode mirrors m_bStopLayer1: descent stops at layer 1; final
     positions scale x2, the NMS rects use the layer-1 template dims x2,
-    result corners still use the level-0 dims (as the TPU finalize
+    result corners still use the level-0 dims (as the JAX finalize
     does)."""
     stop = 1 if fast_mode else 0
     src = np.asarray(src, np.uint8)
@@ -191,7 +191,7 @@ def oracle_match(src: np.ndarray, templ: np.ndarray, max_pos=10,
 
     # FilterWithScore + rotated-rect NMS + assembly. With fast_mode the
     # descent stopped at layer 1: positions scale x2 and the NMS rects
-    # use the layer-1 template dims x2 (the TPU finalize's convention).
+    # use the layer-1 template dims x2 (the JAX finalize's convention).
     scale = 2.0 if stop == 1 else 1.0
     results = [(sc, (lt[0] * scale, lt[1] * scale), ang)
                for (sc, lt, ang) in results if sc >= score]

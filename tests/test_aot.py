@@ -213,3 +213,46 @@ print("CHILD_OK", len(res), round(res[0].score, 6))
     n, score = last.split()[1:3]
     assert int(n) == len(ref) == 1
     assert abs(float(score) - ref[0].score) < 1e-6
+
+
+def test_platform_names_follow_jax_export():
+    """Packs name platforms as jax.export does ("cuda", not the "gpu" of
+    jax.default_backend()); a pack exported on a GPU loads on a GPU."""
+    assert aot._current_platform() == "cpu"
+    aot._check_platform(["cuda"], current="cuda")
+    aot._check_platform(["cpu", "cuda"], current="cuda")
+    with pytest.raises(ValueError, match="re-export"):
+        aot._check_platform(["cuda"], current="cpu")
+    with pytest.raises(ValueError, match="re-export"):
+        aot._check_platform(["gpu"], current="cuda")
+
+
+def test_pack_for_another_platform_is_refused(pack, tmp_path):
+    path = pack[0]
+    data = dict(np.load(path))
+    data["platforms"] = np.frombuffer(b'["cuda"]', np.uint8)
+    other = str(tmp_path / "cuda_pack.npz")
+    np.savez(other, **data)
+    with pytest.raises(ValueError, match="exported for \\['cuda'\\]"):
+        fipm.AotMatcher.load(other)
+
+
+def test_pack_without_portable_blobs_retraces(tmp_path, monkeypatch):
+    """Where jax.export cannot serialize (no flatbuffers package), a pack
+    keeps its program list and config; the loader re-traces each program
+    on first use and matches like the traced path."""
+    scene, tpl = _scene()
+    cfg = fipm.MatchConfig(max_pos=5, score=0.6, tolerance_angle=10.0)
+    pat = fipm.learn_pattern(tpl, cfg.min_reduce_area)
+    monkeypatch.setattr(aot, "_export_fn", lambda fn, args: None)
+    path = str(tmp_path / "noblob.npz")
+    fipm.export_match_pack(path, pat, cfg, scene.shape, batch_sizes=(2,))
+    data = np.load(path)
+    assert not [k for k in data.files if k.startswith("exp_")]
+    m = fipm.AotMatcher.load(path)
+    assert m.platforms == [aot._current_platform()]
+    ref = fipm.match(scene, pat, cfg)
+    got = m.match(scene)
+    assert [(r.score, r.center) for r in got] == \
+        [(r.score, r.center) for r in ref]
+    assert len(m.match_many(np.stack([scene, scene]))) == 2

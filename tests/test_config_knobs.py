@@ -1,4 +1,4 @@
-"""TPU-native MatchConfig knobs: two_phase and narrow_candidates.
+"""Accelerator MatchConfig knobs: two_phase and narrow_candidates.
 
 Both are alternate dispatch pipelines (template_matcher._dispatch /
 descend_range) that previously had no CPU coverage. two_phase is
@@ -124,8 +124,8 @@ def test_narrow_candidates_bound(scene_and_pattern):
 
 
 def test_compute_dtype_variants_agree():
-    """bf16 (default), f32 and int8 MXU paths must find identical targets
-    with scores within float tolerance (all three are exact schemes on
+    """bf16 (default), f32 and int8 correlation paths must find identical
+    targets with scores within float tolerance (all three are exact schemes on
     u8-valued inputs; ncc-level parity is in test_ncc, this pins the
     MatchConfig plumbing end-to-end)."""
     import fastest_image_pattern_matching_tpu as fipm

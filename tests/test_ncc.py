@@ -142,8 +142,7 @@ def test_ncc_shiftmm_matches_conv(rng):
 
 
 # ---------------------------------------------------------------------------
-# Banded-Toeplitz backend (the Test6/Test7 many-target regime; previously
-# validated only in TPU job logs — these are the committed CPU twins).
+# Banded-Toeplitz backend (the Test6/Test7 many-target regime).
 # ---------------------------------------------------------------------------
 
 def test_ncc_banded_matches_conv_small(rng):
@@ -165,10 +164,12 @@ def test_ncc_banded_matches_conv_small(rng):
 
 
 def test_ncc_banded_above_auto_gate(rng):
-    """Shape above the Ho*Wo>65536 auto gate: 'auto' must route to banded
-    and match cv2. Dispatch is asserted by monkeypatching the backend."""
+    """A big map (Ho*Wo = 76665), the many-target regime banded was built
+    for: explicit method="banded" matches cv2, and "auto" no longer
+    routes there (conv and FFT are faster on the H100, PERF.md).
+    Dispatch is asserted by monkeypatching the backend."""
     from fastest_image_pattern_matching_tpu.ops import ncc as ncc_mod
-    H, W, h, w = 280, 300, 12, 16   # Ho*Wo = 269*285 = 76665 > 65536
+    H, W, h, w = 280, 300, 12, 16
     src = rng.integers(0, 256, size=(H, W), dtype=np.uint8)
     templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
     mean, norm, inv_area = _stats(templ)
@@ -180,16 +181,17 @@ def test_ncc_banded_above_auto_gate(rng):
         return orig(*a, **k)
 
     ncc_mod.ccorr_banded = spy
+    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
     try:
-        got = np.asarray(ncc_mod.ncc_score_map(
-            jnp.asarray(src, jnp.float32)[None],
-            jnp.asarray(templ, jnp.float32),
-            mean, norm, inv_area, False, "bf16", method="auto"))[0]
+        for method, n_calls in (("auto", 0), ("banded", 1)):
+            got = np.asarray(ncc_mod.ncc_score_map(
+                jnp.asarray(src, jnp.float32)[None],
+                jnp.asarray(templ, jnp.float32),
+                mean, norm, inv_area, False, "bf16", method=method))[0]
+            assert len(calls) == n_calls, method
+            np.testing.assert_allclose(got, ref, atol=2e-3)
     finally:
         ncc_mod.ccorr_banded = orig
-    assert calls, "auto did not select the banded backend above the gate"
-    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
-    np.testing.assert_allclose(got, ref, atol=2e-3)
 
 
 def test_ncc_banded_below_auto_gate_not_selected(rng):
@@ -219,32 +221,34 @@ def test_ncc_banded_below_auto_gate_not_selected(rng):
 
 
 def test_ncc_banded_budget_gate_fallback(rng):
-    """With the band HBM budget shrunk below eligibility, auto must fall
-    through to another backend and stay correct."""
+    """Past the convolution's launch-bound regime (B*Ho*Wo*h*w > 2^25)
+    auto falls through to FFT, never to banded, and stays correct."""
     from fastest_image_pattern_matching_tpu.ops import ncc as ncc_mod
-    H, W, h, w = 280, 300, 12, 16
+    H, W, h, w = 420, 440, 24, 32
+    assert (H - h + 1) * (W - w + 1) * h * w > ncc_mod._CONV_MAX_MACS
     src = rng.integers(0, 256, size=(H, W), dtype=np.uint8)
     templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
     mean, norm, inv_area = _stats(templ)
     calls = []
-    orig_budget = ncc_mod._BANDED_BUDGET_ELEMS
-    orig = ncc_mod.ccorr_banded
+    orig = {n: getattr(ncc_mod, n) for n in ("ccorr_banded", "ccorr_fft")}
 
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
+    def spy(name):
+        def f(*a, **k):
+            calls.append(name)
+            return orig[name](*a, **k)
+        return f
 
-    ncc_mod.ccorr_banded = spy
-    ncc_mod._BANDED_BUDGET_ELEMS = 16
+    for n in orig:
+        setattr(ncc_mod, n, spy(n))
     try:
         got = np.asarray(ncc_mod.ncc_score_map(
             jnp.asarray(src, jnp.float32)[None],
             jnp.asarray(templ, jnp.float32),
             mean, norm, inv_area, False, "bf16", method="auto"))[0]
     finally:
-        ncc_mod._BANDED_BUDGET_ELEMS = orig_budget
-        ncc_mod.ccorr_banded = orig
-    assert not calls, "banded selected past its band-memory budget"
+        for n, f in orig.items():
+            setattr(ncc_mod, n, f)
+    assert calls == ["ccorr_fft"], calls
     ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
     np.testing.assert_allclose(got, ref, atol=2e-3)
 

@@ -1,5 +1,5 @@
 """End-to-end cross-validation against the cv2-based reference oracle
-(tests/oracle_reference.py): the TPU pipeline and a direct OpenCV
+(tests/oracle_reference.py): the JAX pipeline and a direct OpenCV
 implementation of the reference algorithm must agree on real and
 synthetic scenes."""
 

@@ -77,50 +77,3 @@ def test_make_rotation_invmaps_matches_host():
         m[1, 2] += s[1]
         want = geometry.invert_affine(m)
         np.testing.assert_allclose(got[i], want, atol=1e-4)
-
-
-def test_sliced_impl_matches_gather():
-    """warp_affine_batch_sliced (the (2,2)-slice formulation) must be
-    bit-identical to the gather reference across rotations and border
-    clipping — it is a selectable warp_affine_dispatch backend."""
-    import jax.numpy as jnp
-    from fastest_image_pattern_matching_tpu.ops.warp import (
-        warp_affine_batch, warp_affine_batch_sliced)
-    from fastest_image_pattern_matching_tpu.utils import geometry
-
-    rng = np.random.default_rng(41)
-    src = rng.integers(0, 256, (120, 150)).astype(np.float32)
-    h, w = src.shape
-    mats = []
-    for a in (0.0, 17.5, -120.0, 89.0):
-        m = geometry.rotation_matrix(((w - 1) / 2, (h - 1) / 2), a)
-        m[0, 2] += 7.25
-        m[1, 2] -= 3.5
-        mats.append(geometry.invert_affine(m))
-    inv = jnp.asarray(np.asarray(mats, np.float32))
-    for quant in (True, False):
-        ref = np.asarray(warp_affine_batch(jnp.asarray(src), inv, (64, 96),
-                                           30.0, quantize=quant))
-        got = np.asarray(warp_affine_batch_sliced(
-            jnp.asarray(src), inv, (64, 96), 30.0, quantize=quant))
-        np.testing.assert_allclose(got, ref, atol=1e-3 if not quant else 0)
-
-
-def test_dispatch_routes_all_impls():
-    import jax.numpy as jnp
-    from fastest_image_pattern_matching_tpu.ops.warp import (
-        warp_affine_batch, warp_affine_dispatch)
-    from fastest_image_pattern_matching_tpu.utils import geometry
-
-    rng = np.random.default_rng(43)
-    src = rng.integers(0, 256, (90, 110)).astype(np.float32)
-    m = geometry.rotation_matrix((54.5, 44.5), 33.0)
-    inv = jnp.asarray(np.asarray([geometry.invert_affine(m)], np.float32))
-    ref = np.asarray(warp_affine_batch(jnp.asarray(src), inv, (40, 60), 0.0))
-    for impl in ("gather", "sliced"):
-        got = np.asarray(warp_affine_dispatch(
-            jnp.asarray(src), inv, (40, 60), 0.0, impl=impl))
-        np.testing.assert_array_equal(got, ref)
-    with pytest.raises(Exception):
-        warp_affine_dispatch(jnp.asarray(src), inv, (40, 60), 0.0,
-                             impl="nonsense")

@@ -8,7 +8,7 @@ the real M12 templates. Measures the batched MultiTemplateMatcher path
 source pyramid hoisted) against the per-glyph dispatch loop (the
 reference's structure), and asserts the string is read back correctly.
 
-Usage: timeout 1800 python tools/ocr_bench.py   (or via tpu_job_server)
+Usage: python tools/ocr_bench.py --images "<reference>/Test Images"
 """
 
 import glob
@@ -19,9 +19,10 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
-M12 = "/root/reference/Test Images/M12"
+M12 = None  # <images>/M12, set by --images
 TEXT = "M12X05"
 
 
@@ -104,6 +105,15 @@ def run_ocr_bench(log=print, iters=3):
 
 
 def main():
+    global M12
+    import argparse
+    ap = argparse.ArgumentParser(description="M12 glyph OCR benchmark")
+    ap.add_argument("--images", required=True,
+                    help="the reference's 'Test Images' directory")
+    M12 = os.path.join(ap.parse_args().images, "M12")
+    from fastest_image_pattern_matching_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     out = run_ocr_bench()
     print(json.dumps(out))
     return 0 if out["ok"] else 1

@@ -1,57 +1,51 @@
 """Pre-warm the persistent XLA compile cache for a deployment's configs.
 
-Cold compile is the TPU tax a library user pays on first call
-(COLD artifacts: 10-80 s per (shape, config) truly cold, seconds with a
-warm disk cache). This tool compiles every config you list — the suite's
-by default — into .jax_cache ahead of time, so a fresh process's first
-match pays only cache deserialization (the COLD_r03 "warm" number).
+A fresh process pays trace + compile on its first call per (shape,
+config). This tool compiles every suite config and the flagship into the
+persistent cache (utils/compile_cache.py) ahead of time, so a fresh
+process's first match pays only cache deserialization. The cache key
+includes the platform, so run it on the deployment machine.
 
-Works on any backend (CPU prewarm is useless for the TPU — the cache key
-includes the platform — so run this ON the deployment machine, e.g. via
-tpu_job_server). Usage:
-    python tools/prewarm_cache.py            # suite configs
-    prewarm(shapes_and_cfgs, log)            # from a job
+Usage: python tools/prewarm_cache.py --images "<reference>/Test Images"
 """
 
+import argparse
+import os
 import sys
 import time
 
-import numpy as np
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
 
-sys.path.insert(0, "/root/repo")
-
-
-def _enable_cache():
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+PACK_DIR = os.path.join(REPO, ".aot_packs")
 
 
-PACK_DIR = "/root/repo/.aot_packs"
-
-
-def prewarm_suite(batch: int = 8, log=print, export_packs: bool = False):
-    """Compile the full Test1-7 suite's single-frame AND batched programs
-    (plus the flagship's) into the persistent cache.
+def prewarm_suite(images, batch: int = 8, log=print,
+                  export_packs: bool = False):
+    """Compile the Test1-7 suite's single-frame AND batched programs (plus
+    the flagship's) into the persistent cache.
 
     export_packs=True additionally writes an AOT pack per config into
     PACK_DIR (fipm.export_match_pack) and runs each pack's programs once
     so their (differently-keyed) executables are also cache-resident —
     the full deployment prewarm."""
-    _enable_cache()
-    import os
+    from fastest_image_pattern_matching_tpu.utils.compile_cache import (
+        enable_compile_cache)
+    enable_compile_cache()
     import cv2
     import jax.numpy as jnp
     import fastest_image_pattern_matching_tpu as fipm
-    from suite_bench import IMG_DIR, TESTS, _load_scene
+    from fastest_image_pattern_matching_tpu.utils import scenes
+    import suite_bench
+    suite_bench.IMG_DIR = images
 
     if export_packs:
         os.makedirs(PACK_DIR, exist_ok=True)
     done = []
-    for name, s, d, kw, _refs, _expect, _note in TESTS:
-        tpl = cv2.imread(f"{IMG_DIR}/{d}", cv2.IMREAD_GRAYSCALE)
-        src = _load_scene(s, tpl) if tpl is not None else None
+    for name, s, d, kw, _refs, _expect, _note in suite_bench.TESTS:
+        tpl = cv2.imread(f"{images}/{d}", cv2.IMREAD_GRAYSCALE)
+        src = suite_bench._load_scene(s, tpl) if tpl is not None else None
         if src is None or tpl is None:
             continue
         cfg = fipm.MatchConfig(**kw)
@@ -77,13 +71,10 @@ def prewarm_suite(batch: int = 8, log=print, export_packs: bool = False):
         log(msg)
         done.append(name)
 
-    # The flagship bench config (bench.py — the driver's headline run).
-    sys.path.insert(0, "/root/repo")
-    from bench import REFERENCE_MS, _build_src7_like  # noqa: F401
-    scene, templ = _build_src7_like()
-    pattern = fipm.learn_pattern(templ, 256)
-    cfg = fipm.MatchConfig(max_pos=3, score=0.7, tolerance_angle=180.0,
-                           max_overlap=0.1, use_subpixel=True)
+    # The flagship (bench.py's headline config).
+    scene, templ, _ = scenes.flagship_scene(0)
+    pattern = fipm.learn_pattern(templ, scenes.FLAGSHIP_MIN_REDUCE_AREA)
+    cfg = fipm.MatchConfig(**scenes.FLAGSHIP_CONFIG)
     scene_dev = jnp.asarray(scene, jnp.float32)
     t0 = time.perf_counter()
     fipm.match(scene_dev, pattern, cfg)
@@ -95,5 +86,9 @@ def prewarm_suite(batch: int = 8, log=print, export_packs: bool = False):
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, "/root/repo/tools")
-    prewarm_suite()
+    ap = argparse.ArgumentParser(description="prewarm the compile cache")
+    ap.add_argument("--images", required=True,
+                    help="the reference's 'Test Images' directory")
+    ap.add_argument("--export-packs", action="store_true")
+    a = ap.parse_args()
+    prewarm_suite(a.images, export_packs=a.export_packs)

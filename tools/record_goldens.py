@@ -90,7 +90,7 @@ CASES = [
           min_reduce_area=256, fast_mode=True)),
     # The big-template regime (Test6 pair). Narrow sweep + fast_mode keep
     # the CPU test-suite replay affordable; the full-circle Test6 config
-    # is covered on TPU by tools/suite_bench.py.
+    # is covered on the GPU by tools/suite_bench.py.
     ("src6_narrow", f"{TI}/Src6.jpg", f"{TI}/Dst6.bmp",
      dict(max_pos=15, score=0.8, tolerance_angle=15.0, max_overlap=0.1,
           min_reduce_area=256, fast_mode=True)),
