@@ -123,16 +123,22 @@ def ncc_reference(canv: np.ndarray, templ: np.ndarray) -> np.ndarray:
                     np.where(np.abs(num) < den * 1.125, np.sign(num), 0.0))
 
 
-def quantized_parity(got, ref, ref_unq, got_unq=None):
+# Largest difference between two devices' unquantized warps allowed at a
+# pixel whose rounded values differ. The GPU computes level-0 sample
+# coordinates near 4000 px a few ulps away from the CPU (fused
+# multiply-adds), which moved a steep edge's value by at most 0.055 on an
+# H100; a planted sub-pixel sampling fault reads higher (PERF.md).
+WARP_UNQ_BOUND = 0.1
+
+
+def quantized_parity(got, ref, ref_unq, got_unq=None, bound=WARP_UNQ_BOUND):
     """Quantized warps agree except at .5 rounding boundaries: every
     mismatch is +-1, rare (< 1e-3 of pixels) and at a boundary.
 
     Without got_unq, "at a boundary" means ref_unq lies within 1e-2 of
     X.5. With got_unq (the other device's unquantized warp) it means the
-    two unquantized values differ by less than 0.5 and each rounds to
-    its own device's output: the devices computed the sample coordinates
-    a few ulps apart (fused multiply-adds on the GPU), which at level-0
-    coordinates near 4000 px moves a steep edge's value by up to ~0.4."""
+    two unquantized values differ by less than `bound` and each rounds to
+    its own device's output."""
     d = got - ref
     bad = d != 0
     frac_bad = float(bad.mean())
@@ -142,7 +148,7 @@ def quantized_parity(got, ref, ref_unq, got_unq=None):
         ok = ok and float(frac.max()) < 1e-2
     elif bad.any():
         g, r = got_unq[bad], ref_unq[bad]
-        ok = (ok and bool(np.all(np.abs(g - r) < 0.5))
+        ok = (ok and bool(np.all(np.abs(g - r) < bound))
               and bool(np.all(np.round(g) == got[bad]))
               and bool(np.all(np.round(r) == ref[bad])))
     return ok, frac_bad
@@ -205,12 +211,11 @@ def phase_parity(cases):
     l0h, l0w = fl.templ_shapes[0]
     shapes = {
         # name: (canvases [B, H, W], template [h, w], methods)
-        "flagship-top": ((n_ang, Hc, Wc), (th, tw),
-                         ("conv", "banded", "fft", "auto")),
-        "test7-top": ((1, 1824, 1824), (27, 27),
-                      ("conv", "banded", "fft", "auto")),
+        "flagship-top": ((n_ang, Hc, Wc), (th, tw), ("conv", "fft", "auto")),
+        "test7-top": ((1, 1824, 1824), (27, 27), ("conv", "fft", "auto")),
         "flagship-descent": ((24, l0h + 6, l0w + 6), (l0h, l0w),
                              ("shiftmm", "conv", "auto")),
+        "test7-descent": ((32, 60, 60), (54, 54), ("shiftmm", "conv", "auto")),
     }
     for sname, (cshape, tshape, methods) in shapes.items():
         canv = rng.integers(0, 256, cshape).astype(np.float32)
@@ -222,7 +227,7 @@ def phase_parity(cases):
         args = (jnp.asarray(canv), jnp.asarray(tpl), mean, norm,
                 1.0 / area, False)
         for method in methods:
-            dtypes = ("f32",) if method == "fft" else ("int8", "bf16", "f32")
+            dtypes = ("f32",) if method == "fft" else ("bf16", "f32")
             for dt in dtypes:
                 fn = jax.jit(lambda c, t, dt=dt, m=method: ncc.ncc_score_map(
                     c, t, *args[2:], dt, m))
@@ -353,15 +358,20 @@ def phase_aot_orb(case, flagship_res):
     pack_dir = os.path.join(CHECKOUT_DIR, ".aot_packs")
     os.makedirs(pack_dir, exist_ok=True)
     path = os.path.join(pack_dir, "chip_smoke_flagship.npz")
+    # Executables only: jax.export's portable serialization needs the
+    # optional flatbuffers package, which a GPU machine may lack.
     fipm.export_match_pack(path, case["pattern"], case["cfg"],
-                           case["scene"].shape, include_executables=True)
+                           case["scene"].shape, include_executables=True,
+                           portable=False)
     m = fipm.AotMatcher.load(path)
     res = m.match(case["scene"])
     same = flagship_res is not None and len(res) == len(flagship_res) and all(
         (a.score, a.angle, a.center) == (b.score, b.angle, b.center)
         for a, b in zip(res, flagship_res))
-    check("AotMatcher (bundled executable) == phase 3 match", same,
-          f"platforms={m.platforms} n={len(res)}")
+    check("AotMatcher (bundled executable) == phase 3 match",
+          same and m._fns["single"]._from_exe,
+          f"platforms={m.platforms} n={len(res)} "
+          f"from_executable={m._fns['single']._from_exe}")
     os.remove(path)
 
     rng = np.random.default_rng(5)
@@ -382,20 +392,19 @@ def phase_aot_orb(case, flagship_res):
 
 def _compare_arrays(name, out, ref):
     """Sharded vs single-device result arrays: the same valid matches,
-    bitwise or within the CPU-device tolerances (score 1e-4, xy 0.05 px,
-    angle 0.01). Programs of other shapes (11 angles per card instead of
-    41) may fuse the float32 epilogue differently on the GPU, which moves
-    scores by ulps."""
+    bitwise (every per-candidate computation is the same arithmetic in
+    the same order whatever the partition). The largest angle distance in
+    float32 ulps is printed beside."""
     v = out["valid"]
-    same = np.array_equal(v, ref["valid"])
-    bitwise = same and all(np.array_equal(out[k], ref[k])
-                           for k in ("score", "angle", "center"))
-    ds = float(np.abs(out["score"] - ref["score"])[v].max(initial=0))
-    dx = float(np.abs(out["center"] - ref["center"])[v].max(initial=0))
-    da = float(np.abs(out["angle"] - ref["angle"])[v].max(initial=0))
-    check(f"{name} == single device", same and ds <= 1e-4 and dx <= 0.05
-          and da <= 0.01, f"bitwise={bitwise} valid={int(v.sum())} "
-          f"|dscore|={ds:.3g} |dxy|={dx:.3g} |dangle|={da:.3g}")
+    same = np.array_equal(v, ref["valid"]) and all(
+        np.array_equal(out[k][v], ref[k][v])
+        for k in ("score", "center", "angle"))
+    a = out["angle"][v].astype(np.float32)
+    b = ref["angle"][v].astype(np.float32)
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    ulps = float((np.abs(a.astype(np.float64) - b) / ulp).max(initial=0))
+    check(f"{name} == single device", same,
+          f"valid={int(v.sum())} bitwise={same} angle max {ulps:g} ulp")
 
 
 def phase_four_cards(cases):

@@ -58,20 +58,18 @@ def _cfg_from_json(s: str) -> MatchConfig:
     return MatchConfig(**d)
 
 
-def _export_fn(fn, args) -> Optional[bytes]:
-    """The portable StableHLO blob of fn, or None where jax.export cannot
-    serialize (it needs the optional flatbuffers package). A pack without
-    portable blobs still carries the bundled executables, and its loader
-    re-traces from the pattern and config when those cannot be used."""
+def _export_fn(fn, args) -> bytes:
+    """The portable StableHLO blob of fn. jax.export serializes with the
+    optional flatbuffers package; without it this raises, and only an
+    executables-only pack (portable=False) can be written."""
     from jax import export as jexport
     exported = jexport.export(fn)(*args)
     try:
         return exported.serialize()
     except ImportError as e:
-        import logging
-        logging.getLogger(__name__).warning(
-            "portable program not serialized: %s", e)
-        return None
+        raise ImportError(
+            f"{e} — or export with include_executables=True, "
+            "portable=False for a pack of bundled executables only") from e
 
 
 def _serialize_compiled(fn, args) -> Optional[bytes]:
@@ -94,10 +92,36 @@ def _serialize_compiled(fn, args) -> Optional[bytes]:
         return None
 
 
+def _program_blobs(fn, args, portable: bool, include_executables: bool):
+    """(portable blob, bundled executable) of one program; either may be
+    None, both may not: a pack must be able to run every program."""
+    blob = _export_fn(fn, args) if portable else None
+    exe = _serialize_compiled(fn, args) if include_executables else None
+    if blob is None and exe is None:
+        raise RuntimeError(
+            "executable could not be bundled and portable=False: the pack "
+            "would hold no runnable program")
+    return blob, exe
+
+
+def _check_pack_kind(portable: bool, include_executables: bool) -> bool:
+    """Validate the export options; returns include_executables as it
+    applies on this machine (bundling needs exactly one device)."""
+    if include_executables and not _exe_bundling_ok():
+        if not portable:
+            raise ValueError("an executables-only pack (portable=False) "
+                             "needs exactly one visible device")
+        return False
+    if not (portable or include_executables):
+        raise ValueError("portable=False needs include_executables=True")
+    return include_executables
+
+
 def export_match_pack(path: str, pattern: LearnedPattern, cfg: MatchConfig,
                       src_shape: Tuple[int, int],
                       batch_sizes: Sequence[int] = (),
                       include_executables: bool = False,
+                      portable: bool = True,
                       log=None) -> Dict[str, float]:
     """Export the compiled match program(s) for one deployment config.
 
@@ -109,51 +133,36 @@ def export_match_pack(path: str, pattern: LearnedPattern, cfg: MatchConfig,
     first match then skips compile-from-persistent-cache entirely;
     executables are platform+topology specific, unlike the portable
     StableHLO blobs, and the loader falls back to those on mismatch).
+    portable: write the portable StableHLO blobs (needs the flatbuffers
+    package). portable=False, with include_executables=True on a
+    single-device machine, writes a pack of bundled executables only:
+    it loads only where its executables run, and fails loudly elsewhere.
 
     Returns per-program export seconds (diagnostics).
     """
+    include_executables = _check_pack_kind(portable, include_executables)
     src_shape = (int(src_shape[0]), int(src_shape[1]))
     dummy = jax.ShapeDtypeStruct(src_shape, jnp.float32)
     plan, ekey, args = _prepare_abstract(pattern, cfg, src_shape)
     import time
     timings: Dict[str, float] = {}
-    exe_blobs: Dict[str, bytes] = {}
-    if include_executables and not _exe_bundling_ok():
-        include_executables = False
-
-    t0 = time.perf_counter()
-    fn_single = _tm._compiled(_tm._shared_plan(plan), ekey)
-    blob_capped = _export_fn(fn_single, (dummy,) + args[1:])
-    timings["single"] = time.perf_counter() - t0
-    if include_executables:
-        t0 = time.perf_counter()
-        blob = _serialize_compiled(fn_single, (dummy,) + args[1:])
-        if blob is not None:
-            exe_blobs["single"] = blob
-        timings["exe_single"] = time.perf_counter() - t0
-
-    blobs = {"single": blob_capped}
+    blobs: Dict[str, Optional[bytes]] = {}
+    exe_blobs: Dict[str, Optional[bytes]] = {}
+    programs = [("single", _tm._compiled(_tm._shared_plan(plan), ekey),
+                 dummy)]
     if plan.nms_cap < plan.c_max:
         plan_full = dataclasses.replace(plan, nms_cap=plan.c_max)
-        t0 = time.perf_counter()
-        fn_unc = _tm._compiled(_tm._shared_plan(plan_full), ekey)
-        blobs["single_uncapped"] = _export_fn(fn_unc, (dummy,) + args[1:])
-        timings["single_uncapped"] = time.perf_counter() - t0
-        if include_executables:
-            blob = _serialize_compiled(fn_unc, (dummy,) + args[1:])
-            if blob is not None:
-                exe_blobs["single_uncapped"] = blob
-
+        programs.append(("single_uncapped", _tm._compiled(
+            _tm._shared_plan(plan_full), ekey), dummy))
     for b in sorted(set(int(b) for b in batch_sizes)):
-        dummy_b = jax.ShapeDtypeStruct((b,) + src_shape, jnp.float32)
+        programs.append((f"batch_{b}", _batch._compiled_batch(
+            _tm._shared_plan(plan), ekey, b),
+            jax.ShapeDtypeStruct((b,) + src_shape, jnp.float32)))
+    for name, fn, src_spec in programs:
         t0 = time.perf_counter()
-        fn_b = _batch._compiled_batch(_tm._shared_plan(plan), ekey, b)
-        blobs[f"batch_{b}"] = _export_fn(fn_b, (dummy_b,) + args[1:])
-        timings[f"batch_{b}"] = time.perf_counter() - t0
-        if include_executables:
-            blob = _serialize_compiled(fn_b, (dummy_b,) + args[1:])
-            if blob is not None:
-                exe_blobs[f"batch_{b}"] = blob
+        blobs[name], exe_blobs[name] = _program_blobs(
+            fn, (src_spec,) + args[1:], portable, include_executables)
+        timings[name] = time.perf_counter() - t0
 
     pat_buf = io.BytesIO()
     pattern.save(pat_buf)
@@ -161,7 +170,7 @@ def export_match_pack(path: str, pattern: LearnedPattern, cfg: MatchConfig,
         "format_version": np.int64(_FORMAT_VERSION),
         "jax_version": np.frombuffer(jax.__version__.encode(), np.uint8),
         "platforms": np.frombuffer(
-            json.dumps(_platforms_of(blob_capped)).encode(), np.uint8),
+            json.dumps(_platforms_of(blobs["single"])).encode(), np.uint8),
         "cfg_json": np.frombuffer(_cfg_to_json(cfg).encode(), np.uint8),
         "src_shape": np.asarray(src_shape, np.int64),
         "pattern_npz": np.frombuffer(pat_buf.getvalue(), np.uint8),
@@ -171,6 +180,8 @@ def export_match_pack(path: str, pattern: LearnedPattern, cfg: MatchConfig,
 
 
 def _platforms_of(blob: Optional[bytes]) -> List[str]:
+    """The platforms a program runs on: its portable blob's, or this
+    machine's for an executables-only pack."""
     if blob is None:
         return [_current_platform()]
     from jax import export as jexport
@@ -192,42 +203,46 @@ class _LazyFn:
     holding the NpzFile, not pre-extracted bytes, is what makes load
     O(metadata)) — with fallback from the bundled executable to the
     portable StableHLO blob on any error, including a first CALL that
-    fails on a deserialized-but-incompatible executable. A pack written
-    where jax.export could not serialize has no portable blob; then the
-    fallback re-traces the program (`retrace`)."""
+    fails on a deserialized-but-incompatible executable. An
+    executables-only pack has no blob to fall back to: its errors
+    propagate."""
 
     __slots__ = ("_npz", "_exe_key", "_exp_key", "_fn", "_from_exe",
-                 "_name", "_retrace")
+                 "_name")
 
-    def __init__(self, name: str, npz, exe_key, exp_key, retrace):
+    def __init__(self, name: str, npz, exe_key, exp_key):
         self._name = name
         self._npz = npz
         self._exe_key = exe_key
         self._exp_key = exp_key
-        self._retrace = retrace
         self._fn = None
         self._from_exe = False
 
-    def _load_portable(self):
+    def _load_portable(self, cause=None):
         if self._exp_key is None:
-            return self._retrace(self._name)
+            raise RuntimeError(
+                f"pack program {self._name!r} has no portable blob and its "
+                "bundled executable cannot run here — re-export on this "
+                "machine") from cause
         from jax import export as jexport
         return jax.jit(jexport.deserialize(
             bytes(self._npz[self._exp_key])).call)
 
     def _resolve(self):
         if self._fn is None:
+            cause = None
             if self._exe_key is not None:
                 try:
                     self._fn = _load_exe(bytes(self._npz[self._exe_key]))
                     self._from_exe = True
                 except Exception as e:
+                    cause = e
                     import logging
                     logging.getLogger(__name__).warning(
                         "bundled executable %s unusable (%r); recompiling",
                         self._name, e)
             if self._fn is None:
-                self._fn = self._load_portable()
+                self._fn = self._load_portable(cause)
         return self._fn
 
     def __call__(self, *args):
@@ -243,7 +258,7 @@ class _LazyFn:
             logging.getLogger(__name__).warning(
                 "bundled executable %s failed at call time (%r); "
                 "recompiling from the portable program", self._name, e)
-            self._fn = self._load_portable()
+            self._fn = self._load_portable(e)
             self._from_exe = False
             return self._fn(*args)
 
@@ -259,6 +274,7 @@ def _finish_pack(path, arrs, blobs, exe_blobs, label, log):
         if blob is not None:
             arrs[f"exp_{name}"] = np.frombuffer(blob, np.uint8)
     n_programs = len(blobs)
+    exe_blobs = {k: v for k, v in exe_blobs.items() if v is not None}
     if exe_blobs:
         arrs["exe_backend"] = np.frombuffer(
             _current_platform().encode(), np.uint8)
@@ -291,10 +307,10 @@ def _check_platform(platforms: Sequence[str], current: Optional[str] = None):
             f"{current!r} — re-export on this platform")
 
 
-def _load_pack_fns(data, retrace):
+def _load_pack_fns(data):
     """Shared loader loop: one _LazyFn per exported program, preferring
     the bundled executable when the platform matches (single-device).
-    retrace(name) rebuilds a program that has no usable blob."""
+    Refuses a pack holding a program that can run neither way here."""
     exe_platform = (bytes(data["exe_backend"]).decode()
                     if "exe_backend" in data.files else None)
     use_exe = (exe_platform == _current_platform()
@@ -308,7 +324,14 @@ def _load_pack_fns(data, retrace):
         exe_key = (f"exe_{name}"
                    if use_exe and f"exe_{name}" in data.files else None)
         exp_key = f"exp_{name}" if f"exp_{name}" in data.files else None
-        fns[name] = _LazyFn(name, data, exe_key, exp_key, retrace)
+        if exe_key is None and exp_key is None:
+            raise ValueError(
+                f"pack program {name!r} has no portable blob and no bundled "
+                f"executable for this machine (executables are for "
+                f"{exe_platform!r} on one device; this is "
+                f"{_current_platform()!r} with {len(jax.devices())}) — "
+                "re-export on this machine")
+        fns[name] = _LazyFn(name, data, exe_key, exp_key)
     return fns
 
 
@@ -368,19 +391,10 @@ class AotMatcher:
         pattern = LearnedPattern.load(io.BytesIO(bytes(data["pattern_npz"])))
         platforms = json.loads(bytes(data["platforms"]).decode())
         _check_platform(platforms)
-
-        def retrace(name):
-            plan, ekey, _ = _prepare_abstract(pattern, cfg, src_shape)
-            if name == "single_uncapped":
-                plan = dataclasses.replace(plan, nms_cap=plan.c_max)
-            if name.startswith("batch_"):
-                return _batch._compiled_batch(_tm._shared_plan(plan), ekey,
-                                              int(name.split("_")[1]))
-            return _tm._compiled(_tm._shared_plan(plan), ekey)
         # Bundled executables (include_executables=True at export): load
         # them directly and skip the XLA pipeline entirely; fall back to
         # the portable StableHLO blobs on platform mismatch or any error.
-        fns = _load_pack_fns(data, retrace)
+        fns = _load_pack_fns(data)
         return cls(pattern, cfg, src_shape, fns, platforms)
 
     @property
@@ -476,13 +490,13 @@ def export_orb_pack(path: str, cfg, src_shape: Tuple[int, int],
                     templ_shape: Tuple[int, int],
                     batch_sizes: Sequence[int] = (), seed: int = 0,
                     include_executables: bool = False,
+                    portable: bool = True,
                     log=None) -> Dict[str, float]:
     """Export the compiled ORB pipeline for fixed source/template shapes.
 
     batch_sizes: orb_match_many bucket sizes to additionally export
     (template described once, B sources matched in one program).
-    include_executables: bundle this backend's compiled executables too
-    (see export_match_pack)."""
+    include_executables, portable: as in export_match_pack."""
     from .models import orb as _orb
     import time
     cfg = cfg or _orb.ORBConfig()
@@ -491,36 +505,26 @@ def export_orb_pack(path: str, cfg, src_shape: Tuple[int, int],
     dummy_s = jax.ShapeDtypeStruct(src_shape, jnp.float32)
     dummy_t = jax.ShapeDtypeStruct(templ_shape, jnp.float32)
 
+    include_executables = _check_pack_kind(portable, include_executables)
     timings: Dict[str, float] = {}
-    exe_blobs: Dict[str, bytes] = {}
-    if include_executables and not _exe_bundling_ok():
-        include_executables = False
-    t0 = time.perf_counter()
-    fn_single = _orb._orb_core(cfg, seed)
-    blob_single = _export_fn(fn_single, (dummy_s, dummy_t))
-    timings["single"] = time.perf_counter() - t0
-    if include_executables:
-        blob = _serialize_compiled(fn_single, (dummy_s, dummy_t))
-        if blob is not None:
-            exe_blobs["single"] = blob
-    blobs = {"single": blob_single}
+    blobs: Dict[str, Optional[bytes]] = {}
+    exe_blobs: Dict[str, Optional[bytes]] = {}
+    programs = [("single", _orb._orb_core(cfg, seed), dummy_s)]
     for b in sorted(set(int(b) for b in batch_sizes)):
-        dummy_b = jax.ShapeDtypeStruct((b,) + src_shape, jnp.float32)
+        programs.append((f"batch_{b}", _orb._orb_core_many(cfg, seed),
+                         jax.ShapeDtypeStruct((b,) + src_shape, jnp.float32)))
+    for name, fn, src_spec in programs:
         t0 = time.perf_counter()
-        fn_b = _orb._orb_core_many(cfg, seed)
-        blobs[f"batch_{b}"] = _export_fn(fn_b, (dummy_b, dummy_t))
-        timings[f"batch_{b}"] = time.perf_counter() - t0
-        if include_executables:
-            blob = _serialize_compiled(fn_b, (dummy_b, dummy_t))
-            if blob is not None:
-                exe_blobs[f"batch_{b}"] = blob
+        blobs[name], exe_blobs[name] = _program_blobs(
+            fn, (src_spec, dummy_t), portable, include_executables)
+        timings[name] = time.perf_counter() - t0
 
     arrs = {
         "format_version": np.int64(_FORMAT_VERSION),
         "kind": np.frombuffer(b"orb", np.uint8),
         "jax_version": np.frombuffer(jax.__version__.encode(), np.uint8),
         "platforms": np.frombuffer(
-            json.dumps(_platforms_of(blob_single)).encode(), np.uint8),
+            json.dumps(_platforms_of(blobs["single"])).encode(), np.uint8),
         "cfg_json": np.frombuffer(
             json.dumps(dataclasses.asdict(cfg)).encode(), np.uint8),
         "seed": np.int64(seed),
@@ -563,15 +567,9 @@ class AotOrb:
         templ_shape = tuple(int(v) for v in data["templ_shape"])
         platforms = json.loads(bytes(data["platforms"]).decode())
         _check_platform(platforms)
-        seed = int(data["seed"])
-
-        def retrace(name):
-            from .models import orb as _orb
-            if name.startswith("batch_"):
-                return _orb._orb_core_many(cfg, seed)
-            return _orb._orb_core(cfg, seed)
-        fns = _load_pack_fns(data, retrace)
-        return cls(cfg, seed, src_shape, templ_shape, fns, platforms)
+        fns = _load_pack_fns(data)
+        return cls(cfg, int(data["seed"]), src_shape, templ_shape, fns,
+                   platforms)
 
     @property
     def batch_sizes(self) -> List[int]:

@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--bitwise-not", action="store_true")
     m.add_argument("--fast-mode", action="store_true",
                    help="stop pyramid descent at layer 1")
-    m.add_argument("--compute-dtype", choices=["bf16", "f32", "int8"],
+    m.add_argument("--compute-dtype", choices=["bf16", "f32"],
                    default=None)
     m.add_argument("--roi", type=int, nargs=4, metavar=("X", "Y", "W", "H"),
                    default=None, help="learn from this template sub-rect")

@@ -56,7 +56,7 @@ class MatchConfig:
     # the reference sorts at :890).
     max_candidates: Optional[int] = None
     # Correlation compute dtype: "bf16" (default; u8-centered
-    # inputs are exact in bf16, f32 accumulation), "f32", or "int8".
+    # inputs are exact in bf16, f32 accumulation) or "f32".
     compute_dtype: str = "bf16"
     # Round warped canvases to integers, emulating the reference's u8
     # rotated images (warpAffine writes u8, MatchToolDlg.cpp:856).
@@ -98,8 +98,9 @@ class MatchConfig:
             # Reference requires left < right per range (MatchToolDlg.cpp:807-810).
             if t1 >= t2 or t3 >= t4:
                 raise ValueError("tolerance_ranges: need t1 < t2 and t3 < t4")
-        if self.compute_dtype not in ("bf16", "f32", "int8"):
-            raise ValueError(f"bad compute_dtype {self.compute_dtype}")
+        if self.compute_dtype not in ("bf16", "f32"):
+            raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got "
+                             f"{self.compute_dtype!r}")
 
     @property
     def effective_max_candidates(self) -> int:

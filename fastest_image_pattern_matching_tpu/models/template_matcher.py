@@ -530,7 +530,7 @@ def build_stages(plan: _Plan, stats, thr=None, narrow_hook=None):
     def prep_src(src):
         """Input normalization shared by every entry point: u8-contract
         clip (device inputs can't be validated host-side; the exact bf16
-        and int8 correlations need u8 values) + bitwise-not."""
+        correlation needs u8 values) + bitwise-not."""
         src = jnp.clip(src, 0.0, 255.0)
         if cfg.bitwise_not:
             src = 255.0 - src
@@ -816,11 +816,11 @@ def _prepare(src, pattern: LearnedPattern, cfg: MatchConfig):
         from ..utils.imageio import ensure_gray
         src = ensure_gray(src)
     # u8-value contract (the reference operates on 8-bit images throughout;
-    # our int8 path additionally relies on it for exactness). Host
+    # the bf16 correlation additionally relies on it for exactness). Host
     # arrays that are not already uint8 are validated loudly; device-
     # resident arrays can't be checked without a readback — the compiled
     # program clips them instead (see build_stages), so out-of-contract
-    # device inputs degrade to defined clipping, never int8 wraparound.
+    # device inputs degrade to defined clipping.
     if isinstance(src, np.ndarray) and src.dtype != np.uint8:
         lo, hi = float(src.min()), float(src.max())
         if lo < 0.0 or hi > 255.0:

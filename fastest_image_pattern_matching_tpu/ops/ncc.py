@@ -6,8 +6,8 @@ CCOEFF_Denominator (integral-image window stats + numeric guards,
 MatchToolDlg.cpp:1329-1400).
 
 Batched formulation (one fused op over all canvases):
-  Let Sc = S - 128 and Tc = T - 128 (both in [-128, 127], exact in bf16 and
-  int8), T_bar = mean(T). With T' = T - T_bar (zero-mean template):
+  Let Sc = S - 128 and Tc = T - 128 (both in [-128, 127], exact in bf16),
+  T_bar = mean(T). With T' = T - T_bar (zero-mean template):
 
       num   = sum_w S*T' = ccorr_c + (128 - T_bar) * s1c
       where ccorr_c = corr(Sc, Tc)  <- the one contraction that matters
@@ -17,9 +17,9 @@ Batched formulation (one fused op over all canvases):
       t     = sqrt(diff2) * templNorm, with the reference's rounding-error
               cutoff and the 1.125 clamp band (MatchToolDlg.cpp:1384-1395).
 
-This centering keeps every matmul input integer-valued (exact in bf16;
-int8 eligible when area*128*128 < 2^31) and makes the numerator numerically
-benign — no large-magnitude cancellation like raw CCORR - mean*sum.
+This centering keeps every matmul input integer-valued (exact in bf16) and
+makes the numerator numerically benign — no large-magnitude cancellation
+like raw CCORR - mean*sum.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def window_sums(x: jnp.ndarray, hw: Tuple[int, int]) -> jnp.ndarray:
 
 def _precision(compute_dtype: str):
     """f32 correlations must not run in TF32 (an 11-bit significand cannot
-    hold centered u8 products summed over a window); bf16/int8 operands
-    are exact by construction."""
+    hold centered u8 products summed over a window); bf16 operands are
+    exact by construction."""
     return jax.lax.Precision.HIGHEST if compute_dtype == "f32" else None
 
 
@@ -57,12 +57,7 @@ def ccorr_conv(
     templ_c: jnp.ndarray,      # [h, w] f32, centered (T - 128)
     compute_dtype: str = "bf16",
 ) -> jnp.ndarray:
-    """Raw centered cross-correlation conv(Sc, Tc) -> [B, Ho, Wo] f32.
-
-    "int8" runs in bf16 (also exact on these inputs): XLA:GPU refuses an
-    int8 single-channel convolution at many shapes ("could not find any
-    supported configs") and is slower than bf16 where it compiles
-    (PERF.md)."""
+    """Raw centered cross-correlation conv(Sc, Tc) -> [B, Ho, Wo] f32."""
     dt = jnp.float32 if compute_dtype == "f32" else jnp.bfloat16
     out = jax.lax.conv_general_dilated(
         canvases_c.astype(dt)[:, None], templ_c.astype(dt)[None, None],
@@ -92,89 +87,25 @@ def ccorr_shiftmm(
     B, H, W = canvases_c.shape
     h, w = templ_c.shape
     Ho, Wo = H - h + 1, W - w + 1
-    # int8 requires integer-valued inputs (caller opts in
-    # via compute_dtype="int8") and an overflow-free int32 accumulator:
-    # the contraction runs over the full H*W ROI but the shifted copies
-    # are zero outside the h*w template support, so only h*w products are
-    # nonzero — the tight accumulator bound is h*w * 128 * 128 (matching
-    # ccorr_banded).
-    if compute_dtype == "int8" and h * w * 128 * 128 < 2**31:
-        tc = templ_c.astype(jnp.int8)
-        rc = canvases_c.astype(jnp.int8)
-        acc = jnp.int32
-    elif compute_dtype in ("bf16", "int8"):
-        tc = templ_c.astype(jnp.bfloat16)
-        rc = canvases_c.astype(jnp.bfloat16)
-        acc = jnp.float32
-    else:
-        tc = templ_c
-        rc = canvases_c
-        acc = jnp.float32
+    dt = jnp.float32 if compute_dtype == "f32" else jnp.bfloat16
+    tc = templ_c.astype(dt)
+    rc = canvases_c.astype(dt)
     shifts = [jnp.pad(tc, ((dy, Ho - 1 - dy), (dx, Wo - 1 - dx)))
               for dy in range(Ho) for dx in range(Wo)]
     tsh = jnp.stack(shifts)  # [Ho*Wo, H, W]
     out = jax.lax.dot_general(
         rc, tsh, (((1, 2), (1, 2)), ((), ())),
         precision=_precision(compute_dtype),
-        preferred_element_type=acc)  # [B, Ho*Wo]
-    return out.astype(jnp.float32).reshape(B, Ho, Wo)
+        preferred_element_type=jnp.float32)  # [B, Ho*Wo]
+    return out.reshape(B, Ho, Wo)
 
 
-def ccorr_banded(
-    canvases_c: jnp.ndarray,   # [B, H, W] f32, centered
-    templ_c: jnp.ndarray,      # [h, w] f32, centered
-    compute_dtype: str = "bf16",
-) -> jnp.ndarray:
-    """Centered cross-correlation for SMALL templates over LARGE maps as a
-    scan of banded (Toeplitz) matmuls, an exact alternative to the
-    convolution in the many-target regime (the reference's BlockMax tests,
-    README.md:23-29). "auto" does not pick it: on the H100 FFT and cuDNN
-    are faster at every measured shape (PERF.md).
-
-    corr = sum_dy  canvas[dy:dy+Ho, :] @ Band_dy,  Band_dy[x, v] = T[dy, x-v]
-    Band matrices are built once per call by diagonal accumulation (exact;
-    the largest transient is one [W, Wo] mask, not a [w, W, Wo] one-hot);
-    bf16 on u8-centered values with f32 accumulation is exact (see module
-    doc). Band memory: h*W*Wo elements.
-    """
-    B, H, W = canvases_c.shape
-    h, w = templ_c.shape
-    Ho, Wo = H - h + 1, W - w + 1
-    # int8 (caller opts in, guaranteeing integer inputs):
-    # each band row holds w nonzero template values, so the full
-    # correlation magnitude is bounded by h*w*128*128 — accumulate the
-    # scan in int32 (exact far beyond the f32 path's 2^24 mantissa).
-    use_i8 = compute_dtype == "int8" and h * w * 128 * 128 < 2**31
-    dt = (jnp.int8 if use_i8
-          else jnp.bfloat16 if compute_dtype in ("bf16", "int8")
-          else jnp.float32)
-    accdt = jnp.int32 if use_i8 else jnp.float32
-    x_i = jax.lax.broadcasted_iota(jnp.int32, (W, Wo), 0)
-    v_i = jax.lax.broadcasted_iota(jnp.int32, (W, Wo), 1)
-    diff = x_i - v_i
-    tc = templ_c.astype(dt)
-    band = jnp.zeros((h, W, Wo), dt)
-    for j in range(w):
-        if use_i8:
-            band = band + jnp.where(diff == j, tc[:, j][:, None, None],
-                                    jnp.int8(0))
-        else:
-            band = band + tc[:, j][:, None, None] * (diff == j).astype(dt)
-    cb = canvases_c.astype(dt)
-
-    def step(acc, dy):
-        xs = jax.lax.dynamic_slice_in_dim(cb, dy, Ho, axis=1)  # [B, Ho, W]
-        bd = jax.lax.dynamic_index_in_dim(band, dy, 0, keepdims=False)
-        return acc + jax.lax.dot_general(
-            xs, bd, (((2,), (0,)), ((), ())),
-            precision=_precision(compute_dtype),
-            preferred_element_type=accdt), 0.0
-
-    acc0 = jnp.zeros((B, Ho, Wo), accdt)
-    out, _ = jax.lax.scan(step, acc0, jnp.arange(h))
-    return out.astype(jnp.float32)
-
-
+# "auto" picks shiftmm for output grids of at most _SHIFTMM_MAX_OUT
+# positions over templates of more than _SHIFTMM_MIN_TEMPLATE pixels: there
+# one dense matmul beats cuDNN by up to 2x on the H100; over smaller
+# templates it is not faster than the convolution (PERF.md, auto table).
+_SHIFTMM_MAX_OUT = 512
+_SHIFTMM_MIN_TEMPLATE = 4096
 # Direct-MAC count (B*Ho*Wo*h*w) up to which "auto" keeps the exact
 # convolution: below it cuDNN's time is launch-bound and level with FFT
 # on the H100; above it cuFFT wins by 2-12x (PERF.md, auto table).
@@ -184,10 +115,11 @@ _CONV_MAX_MACS = 2 ** 25
 def choose_method(B: int, H: int, W: int, h: int, w: int) -> str:
     """The correlation form "auto" picks for B canvases of H x W against
     an h x w template, from the shapes alone (PERF.md, auto table):
-    shiftmm for small output grids (the descent's 7x7 searches), the exact
-    convolution while it is launch-bound, FFT beyond."""
+    shiftmm for small output grids over big templates (the descent's 7x7
+    searches at the lower levels), the exact convolution while it is
+    launch-bound, FFT beyond."""
     Ho, Wo = H - h + 1, W - w + 1
-    if Ho * Wo <= 512:
+    if Ho * Wo <= _SHIFTMM_MAX_OUT and h * w > _SHIFTMM_MIN_TEMPLATE:
         return "shiftmm"
     if B * Ho * Wo * h * w <= _CONV_MAX_MACS:
         return "conv"
@@ -235,12 +167,10 @@ def ncc_score_map(
       "shiftmm" — one dense matmul against all Ho*Wo shifted template
                   copies; the pyramid-descent regime (tiny output grid
                   over a big template); exact.
-      "banded"  — scan of banded-Toeplitz matmuls; exact, never faster
-                  than conv or fft on the H100 (explicit use only).
       "fft"     — frequency-domain correlation (not bit-exact, ~1e-7
                   relative).
-      "auto"    — choose_method: shiftmm when Ho*Wo<=512; conv while
-                  B*Ho*Wo*h*w <= 2^25; fft beyond.
+      "auto"    — choose_method: shiftmm when Ho*Wo <= 512 and
+                  h*w > 4096; conv while B*Ho*Wo*h*w <= 2^25; fft beyond.
     """
     h, w = templ.shape
     B, H, W = canvases.shape
@@ -256,14 +186,12 @@ def ncc_score_map(
         ccorr_c = ccorr_fft(sc, tc)
     elif method == "shiftmm":
         ccorr_c = ccorr_shiftmm(sc, tc, compute_dtype)
-    elif method == "banded":
-        ccorr_c = ccorr_banded(sc, tc, compute_dtype)
     elif method == "conv":
         ccorr_c = ccorr_conv(sc, tc, compute_dtype)
     else:
         # A typo must fail loudly, not silently take the conv path.
         raise ValueError(f"unknown correlation method {method!r} "
-                         "(expected auto|conv|shiftmm|banded|fft)")
+                         "(expected auto|conv|shiftmm|fft)")
     return scores_from_ccorr(sc, ccorr_c, (h, w), templ_mean, templ_norm,
                              inv_area)
 

@@ -9,14 +9,13 @@ Batched formulation: the fit is affine-equivariant, so we fit in *centered,
 normalized* coordinates (x, y in {-1,0,1}; theta scaled to {-1,0,1}) where
 the design matrix is a fixed, perfectly-conditioned constant. Its
 pseudo-inverse is precomputed once in float64 and the per-candidate solve
-becomes one [10,27]x[27] matmul plus a closed-form 3x3 solve — trivially
-batched over candidates with vmap.
+becomes one [10,27]x[27] product plus a closed-form 3x3 solve — trivially
+batched over candidates.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 
@@ -49,8 +48,15 @@ def subpixel_refine(patches: jnp.ndarray, step_rad) -> jnp.ndarray:
     is guaranteed via a determinant guard (degenerate fits -> zero offset).
     """
     s = patches.reshape(*patches.shape[:-3], 27)
-    z = jnp.einsum("ij,...j->...i", jnp.asarray(_PINV, dtype=jnp.float32), s,
-                   precision=jax.lax.Precision.HIGHEST)
+    # z = PINV @ s as 27 multiply-adds in a fixed order, not a matmul: a
+    # GPU matmul library picks its kernel, and so its summation order, by
+    # the batch size, so a candidate's fit would depend on how many
+    # candidates share the call (each card of an angle-sharded mesh fits
+    # a quarter of them). Plain f32 arithmetic, no TF32.
+    pinv = jnp.asarray(_PINV, dtype=jnp.float32)
+    z = s[..., 0, None] * pinv[:, 0]
+    for j in range(1, 27):
+        z = z + s[..., j, None] * pinv[:, j]
     k0, k1, k2, k3, k4, k5, k6, k7, k8, _ = [z[..., i] for i in range(10)]
 
     # Solve [2k0 k3 k4; k3 2k1 k5; k4 k5 2k2] d = -[k6 k7 k8]

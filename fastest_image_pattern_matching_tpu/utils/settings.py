@@ -3,7 +3,7 @@ QSettings store (org "FastestImagePatternMatching", app "MatchTool":
 loadSettings/saveSettings, src/MatchToolDialog.cpp:495-561), which persists
 the matching parameters and the last-used image paths between sessions.
 
-Stored as JSON under $FIPM_SETTINGS, or ~/.config/fipm/settings.json.
+Stored as JSON under $FIPM_TPU_SETTINGS, or ~/.config/fipm_tpu/settings.json.
 """
 
 from __future__ import annotations
@@ -26,12 +26,12 @@ PERSISTED_KEYS = (
 
 
 def settings_path() -> str:
-    env = os.environ.get("FIPM_SETTINGS")
+    env = os.environ.get("FIPM_TPU_SETTINGS")
     if env:
         return env
     base = os.environ.get("XDG_CONFIG_HOME",
                           os.path.join(os.path.expanduser("~"), ".config"))
-    return os.path.join(base, "fipm", "settings.json")
+    return os.path.join(base, "fipm_tpu", "settings.json")
 
 
 def load_settings(path: str = None) -> Dict[str, Any]:

@@ -202,6 +202,18 @@ many = m.match_many(np.stack([src, src]))
 _aot._load_exe = orig
 assert len(calls) >= 2, calls  # single + batch_2 loaded on first use
 assert len(many) == 2 and len(many[0]) == 1
+assert m._fns["single"]._from_exe and m._fns["batch_2"]._from_exe
+# A pack of bundled executables only (no portable blobs) serves the
+# match from its executable.
+path2 = {str(tmp_path / 'exe_only.npz')!r}
+fipm.export_match_pack(path2, pat, cfg, src.shape, include_executables=True,
+                       portable=False)
+data2 = np.load(path2)
+assert not [k for k in data2.files if k.startswith("exp_")], data2.files
+m2 = fipm.AotMatcher.load(path2)
+res2 = m2.match(src)
+assert m2._fns["single"]._from_exe
+assert [(r.score, r.center) for r in res2] == [(r.score, r.center) for r in res]
 print("CHILD_OK", len(res), round(res[0].score, 6))
 """
     env = dict(__import__("os").environ)
@@ -237,22 +249,45 @@ def test_pack_for_another_platform_is_refused(pack, tmp_path):
         fipm.AotMatcher.load(other)
 
 
-def test_pack_without_portable_blobs_retraces(tmp_path, monkeypatch):
-    """Where jax.export cannot serialize (no flatbuffers package), a pack
-    keeps its program list and config; the loader re-traces each program
-    on first use and matches like the traced path."""
+def test_export_fails_loudly_without_serializer(tmp_path, monkeypatch):
+    """Where jax.export cannot serialize (no flatbuffers package) export
+    raises, naming the executables-only alternative, and writes nothing."""
+    from jax import export as jexport
     scene, tpl = _scene()
     cfg = fipm.MatchConfig(max_pos=5, score=0.6, tolerance_angle=10.0)
     pat = fipm.learn_pattern(tpl, cfg.min_reduce_area)
-    monkeypatch.setattr(aot, "_export_fn", lambda fn, args: None)
-    path = str(tmp_path / "noblob.npz")
-    fipm.export_match_pack(path, pat, cfg, scene.shape, batch_sizes=(2,))
-    data = np.load(path)
-    assert not [k for k in data.files if k.startswith("exp_")]
-    m = fipm.AotMatcher.load(path)
-    assert m.platforms == [aot._current_platform()]
-    ref = fipm.match(scene, pat, cfg)
-    got = m.match(scene)
-    assert [(r.score, r.center) for r in got] == \
-        [(r.score, r.center) for r in ref]
-    assert len(m.match_many(np.stack([scene, scene]))) == 2
+
+    def no_flatbuffers(self, *a, **k):
+        raise ImportError("Please install 'flatbuffers'")
+    monkeypatch.setattr(jexport.Exported, "serialize", no_flatbuffers)
+    path = tmp_path / "none.npz"
+    with pytest.raises(ImportError, match="portable=False"):
+        fipm.export_match_pack(str(path), pat, cfg, scene.shape)
+    assert not path.exists()
+
+
+def test_executables_only_pack_options_are_checked(tmp_path):
+    """portable=False needs bundled executables, and those need exactly
+    one device (this suite runs on a forced multi-device CPU)."""
+    import jax
+    scene, tpl = _scene()
+    cfg = fipm.MatchConfig(max_pos=5, score=0.6, tolerance_angle=10.0)
+    pat = fipm.learn_pattern(tpl, cfg.min_reduce_area)
+    path = str(tmp_path / "p.npz")
+    with pytest.raises(ValueError, match="include_executables"):
+        fipm.export_match_pack(path, pat, cfg, scene.shape, portable=False)
+    assert len(jax.devices()) > 1
+    with pytest.raises(ValueError, match="one visible device"):
+        fipm.export_match_pack(path, pat, cfg, scene.shape,
+                               include_executables=True, portable=False)
+
+
+def test_pack_without_runnable_program_is_refused(pack, tmp_path):
+    """A pack whose program has neither a portable blob nor an executable
+    usable here is refused at load, never re-traced."""
+    data = dict(np.load(pack[0]))
+    del data["exp_single"]
+    other = str(tmp_path / "no_single.npz")
+    np.savez(other, **data)
+    with pytest.raises(ValueError, match="'single' has no portable blob"):
+        fipm.AotMatcher.load(other)

@@ -138,7 +138,7 @@ def test_watch_camera_trigger_mode(tmp_path, monkeypatch):
     monkeypatch.setattr(sources, "VideoCaptureSource",
                         lambda *a, **kw: VideoCaptureSource(
                             *a, **{**kw, "cap_factory": SceneCap}))
-    monkeypatch.setenv("FIPM_SETTINGS", str(tmp_path / "settings.json"))
+    monkeypatch.setenv("FIPM_TPU_SETTINGS", str(tmp_path / "settings.json"))
     tp = str(tmp_path / "t.png")
     cv2.imwrite(tp, tpl)
     out_jsonl = str(tmp_path / "res.jsonl")

@@ -97,6 +97,14 @@ def test_quantized_parity_rule():
     got_unq[4 * 3 + 3] = 5.2  # too far from the other device's value
     assert not chip_smoke.quantized_parity(got, big, np.tile(ref_unq, 1000),
                                            got_unq)[0]
+    # The bound is chip_smoke.WARP_UNQ_BOUND (0.1): the card's sound
+    # reading (0.055) passes, a 0.001 px sampling fault's (0.2) does not.
+    got_unq[4 * 3 + 3] = 4.49995 + 0.055
+    assert chip_smoke.quantized_parity(got, big, np.tile(ref_unq, 1000),
+                                       got_unq)[0]
+    got_unq[4 * 3 + 3] = 4.49995 + 0.2
+    assert not chip_smoke.quantized_parity(got, big, np.tile(ref_unq, 1000),
+                                           got_unq)[0]
 
 
 def test_compare_allows_reordered_ties_only(monkeypatch):
@@ -114,3 +122,23 @@ def test_compare_allows_reordered_ties_only(monkeypatch):
     far = R(score=1.0, angle=0.0, center=(10.2, 10.0))
     chip_smoke._compare("moved", [far, b, c], [a, b, c])
     assert chip_smoke.FAILURES[-1] == "moved vs CPU device"
+
+
+def test_compare_arrays_is_bitwise(monkeypatch):
+    """Sharded vs single-device arrays: valid matches equal bit for bit;
+    one float32 ulp of angle is a failure."""
+    monkeypatch.setattr(chip_smoke, "FAILURES", [])
+    ref = dict(valid=np.array([True, True, False]),
+               score=np.float32([0.9, 0.8, 0.0]),
+               center=np.float32([[10, 20], [30, 40], [0, 0]]),
+               angle=np.float32([120.0, -0.5, 0.0]))
+    chip_smoke._compare_arrays("same", dict(ref, angle=np.float32(
+        [120.0, -0.5, 7.0])), ref)  # invalid slots are not compared
+    assert chip_smoke.FAILURES == []
+    one_ulp = dict(ref, angle=np.float32(
+        [np.nextafter(np.float32(120.0), np.float32(200.0)), -0.5, 0.0]))
+    chip_smoke._compare_arrays("ulp", one_ulp, ref)
+    assert chip_smoke.FAILURES == ["ulp == single device"]
+    moved = dict(ref, score=np.float32([0.9, 0.8 + 1e-7, 0.0]))
+    chip_smoke._compare_arrays("score", moved, ref)
+    assert chip_smoke.FAILURES[-1] == "score == single device"

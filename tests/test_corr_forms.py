@@ -1,4 +1,4 @@
-"""Every correlation form of ops/ncc.py (conv, banded, fft, shiftmm) and
+"""Every correlation form of ops/ncc.py (conv, fft, shiftmm) and
 every compute dtype against a float64 numpy correlation — the TM_CCORR
 inner loop of the reference (MatchToolDlg.cpp:1275-1311) — and the
 shape-only choice ncc_score_map's "auto" makes."""
@@ -16,7 +16,7 @@ SHAPES = [
     (1, 260, 139, 33, 2),    # minimal width
     (1, 200, 310, 11, 100),  # wide template
 ]
-DTYPES = ["int8", "bf16", "f32"]
+DTYPES = ["bf16", "f32"]
 
 
 def _ccorr_f64(S, T):
@@ -46,10 +46,10 @@ def _centered(shape, seed):
 
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("form", [ncc.ccorr_conv, ncc.ccorr_banded])
+@pytest.mark.parametrize("form", [ncc.ccorr_conv])
 def test_exact_forms_match_f64(shape, dtype, form):
-    """conv and banded are exact in every dtype (u8-centered operands,
-    integer or f32 accumulation far below 2^24 per product)."""
+    """conv is exact in every dtype (u8-centered operands, f32
+    accumulation far below 2^24 per product)."""
     S, T = _centered(shape, sum(shape))
     got = np.asarray(form(jnp.asarray(S, jnp.float32),
                           jnp.asarray(T, jnp.float32), dtype))
@@ -93,7 +93,7 @@ def _score_args(S, T):
             float(np.sqrt(var) * np.sqrt(area)), 1.0 / area, False)
 
 
-@pytest.mark.parametrize("method", ["banded", "fft", "auto"])
+@pytest.mark.parametrize("method", ["fft", "auto"])
 def test_score_map_forms_agree_with_conv(method):
     rng = np.random.default_rng(7)
     S = rng.integers(0, 256, (1, 220, 260)).astype(np.float32)
@@ -109,17 +109,20 @@ def test_tall_template_short_output():
     trip tiling code; every exact form agrees."""
     S, T = _centered((1, 90, 180, 57, 9), 3)
     want = _ccorr_f64(S, T)
-    for form in (ncc.ccorr_conv, ncc.ccorr_banded):
-        got = np.asarray(form(jnp.asarray(S, jnp.float32),
-                              jnp.asarray(T, jnp.float32), "int8"))
+    for dtype in DTYPES:
+        got = np.asarray(ncc.ccorr_conv(jnp.asarray(S, jnp.float32),
+                                        jnp.asarray(T, jnp.float32), dtype))
         np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("shape,want", [
     ((41, 68, 70, 9, 12), "conv"),          # flagship top-layer sweep
     ((24, 527, 768, 521, 762), "shiftmm"),  # flagship level-0 descent
-    ((192, 23, 30, 17, 24), "shiftmm"),     # flagship level-5 descent
-    ((32, 60, 60, 54, 54), "shiftmm"),      # many-target level-0 descent
+    ((24, 137, 197, 131, 191), "shiftmm"),  # flagship level-2 descent
+    ((24, 72, 102, 66, 96), "shiftmm"),     # flagship level-3 descent
+    ((96, 39, 54, 33, 48), "conv"),         # flagship level-4 descent
+    ((192, 23, 30, 17, 24), "conv"),        # flagship level-5 descent
+    ((32, 60, 60, 54, 54), "conv"),         # many-target level-0 descent
     ((1, 1824, 1824, 27, 27), "fft"),       # many-target top layer
     ((1, 155, 204, 13, 18), "conv"),        # Test4 top layer
     ((24, 552, 793, 521, 762), "fft"),      # 32x32 search, big template

@@ -107,17 +107,6 @@ def test_match_template_public_api(rng):
         np.testing.assert_allclose(got, ref, atol=3e-3)
 
 
-def test_ncc_int8_matches_opencv(rng):
-    src = rng.integers(0, 256, size=(80, 90), dtype=np.uint8)
-    templ = rng.integers(0, 256, size=(17, 23), dtype=np.uint8)
-    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
-    mean, norm, inv_area = _stats(templ)
-    got = np.asarray(ncc_score_map(
-        jnp.asarray(src, jnp.float32)[None], jnp.asarray(templ, jnp.float32),
-        mean, norm, inv_area, False, "int8", method="conv"))[0]
-    np.testing.assert_allclose(got, ref, atol=1e-5)
-
-
 def test_ncc_shiftmm_matches_conv(rng):
     """Shifted-template matmul backend == conv backend (the descent
     refinement regime: small search window over a big template)."""
@@ -141,151 +130,58 @@ def test_ncc_shiftmm_matches_conv(rng):
     np.testing.assert_allclose(c, a, atol=1e-6)
 
 
-# ---------------------------------------------------------------------------
-# Banded-Toeplitz backend (the Test6/Test7 many-target regime).
-# ---------------------------------------------------------------------------
-
-def test_ncc_banded_matches_conv_small(rng):
-    """Direct banded == conv parity on a small map (below the auto gate)."""
-    from fastest_image_pattern_matching_tpu.ops.ncc import (ccorr_banded,
-                                                            ccorr_conv)
-    src = rng.integers(0, 256, size=(3, 60, 72), dtype=np.uint8)
-    templ = rng.integers(0, 256, size=(11, 14), dtype=np.uint8)
-    sc = jnp.asarray(src, jnp.float32) - 128.0
-    tc = jnp.asarray(templ, jnp.float32) - 128.0
-    for dt in ("f32", "bf16", "int8"):
-        a = np.asarray(ccorr_banded(sc, tc, dt))
-        b = np.asarray(ccorr_conv(sc, tc, "f32"))
-        # integer-valued inputs: bf16/int8 banded are exact
-        np.testing.assert_allclose(a, b, atol=1e-2, rtol=0)
-        if dt in ("bf16", "int8"):
-            np.testing.assert_array_equal(a, np.asarray(
-                ccorr_banded(sc, tc, "f32")))
-
-
-def test_ncc_banded_above_auto_gate(rng):
-    """A big map (Ho*Wo = 76665), the many-target regime banded was built
-    for: explicit method="banded" matches cv2, and "auto" no longer
-    routes there (conv and FFT are faster on the H100, PERF.md).
-    Dispatch is asserted by monkeypatching the backend."""
+def _auto_calls(monkeypatch, src, templ):
+    """The ccorr_* forms auto calls for one score map, and the map."""
     from fastest_image_pattern_matching_tpu.ops import ncc as ncc_mod
-    H, W, h, w = 280, 300, 12, 16
-    src = rng.integers(0, 256, size=(H, W), dtype=np.uint8)
-    templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
-    mean, norm, inv_area = _stats(templ)
     calls = []
-    orig = ncc_mod.ccorr_banded
+    for name in ("ccorr_conv", "ccorr_shiftmm", "ccorr_fft"):
+        orig = getattr(ncc_mod, name)
 
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    ncc_mod.ccorr_banded = spy
-    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
-    try:
-        for method, n_calls in (("auto", 0), ("banded", 1)):
-            got = np.asarray(ncc_mod.ncc_score_map(
-                jnp.asarray(src, jnp.float32)[None],
-                jnp.asarray(templ, jnp.float32),
-                mean, norm, inv_area, False, "bf16", method=method))[0]
-            assert len(calls) == n_calls, method
-            np.testing.assert_allclose(got, ref, atol=2e-3)
-    finally:
-        ncc_mod.ccorr_banded = orig
-
-
-def test_ncc_banded_below_auto_gate_not_selected(rng):
-    """Below the Ho*Wo gate, auto must NOT pick banded (conv/fft wins)."""
-    from fastest_image_pattern_matching_tpu.ops import ncc as ncc_mod
-    src = rng.integers(0, 256, size=(100, 120), dtype=np.uint8)  # Ho*Wo small
-    templ = rng.integers(0, 256, size=(12, 16), dtype=np.uint8)
+        def spy(*a, _name=name, _orig=orig, **k):
+            calls.append(_name)
+            return _orig(*a, **k)
+        monkeypatch.setattr(ncc_mod, name, spy)
     mean, norm, inv_area = _stats(templ)
-    calls = []
-    orig = ncc_mod.ccorr_banded
-
-    def spy(*a, **k):
-        calls.append(1)
-        return orig(*a, **k)
-
-    ncc_mod.ccorr_banded = spy
-    try:
-        got = np.asarray(ncc_mod.ncc_score_map(
-            jnp.asarray(src, jnp.float32)[None],
-            jnp.asarray(templ, jnp.float32),
-            mean, norm, inv_area, False, "bf16", method="auto"))[0]
-    finally:
-        ncc_mod.ccorr_banded = orig
-    assert not calls
-    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
-    np.testing.assert_allclose(got, ref, atol=2e-3)
+    got = np.asarray(ncc_mod.ncc_score_map(
+        jnp.asarray(src, jnp.float32), jnp.asarray(templ, jnp.float32),
+        mean, norm, inv_area, False, "bf16", method="auto"))
+    return calls, got
 
 
-def test_ncc_banded_budget_gate_fallback(rng):
+def test_ncc_auto_small_template_small_grid_takes_conv(rng, monkeypatch):
+    """A 7x7 search over a template of at most 4096 px (the many-target
+    level-0 descent) goes to the convolution, not shiftmm."""
+    src = rng.integers(0, 256, size=(3, 60, 60), dtype=np.uint8)
+    templ = rng.integers(0, 256, size=(54, 54), dtype=np.uint8)
+    calls, got = _auto_calls(monkeypatch, src, templ)
+    assert calls == ["ccorr_conv"], calls
+    ref = cv2.matchTemplate(src[1], templ, cv2.TM_CCOEFF_NORMED)
+    np.testing.assert_allclose(got[1], ref, atol=2e-3)
+
+
+def test_ncc_auto_big_template_small_grid_takes_shiftmm(rng, monkeypatch):
+    """A 7x7 search over a template of more than 4096 px (the flagship's
+    lower descent levels) goes to shiftmm."""
+    src = rng.integers(0, 256, size=(2, 72, 102), dtype=np.uint8)
+    templ = rng.integers(0, 256, size=(66, 96), dtype=np.uint8)
+    calls, got = _auto_calls(monkeypatch, src, templ)
+    assert calls == ["ccorr_shiftmm"], calls
+    ref = cv2.matchTemplate(src[0], templ, cv2.TM_CCOEFF_NORMED)
+    np.testing.assert_allclose(got[0], ref, atol=2e-3)
+
+
+def test_ncc_auto_budget_gate_fallback(rng, monkeypatch):
     """Past the convolution's launch-bound regime (B*Ho*Wo*h*w > 2^25)
-    auto falls through to FFT, never to banded, and stays correct."""
+    auto falls through to FFT and stays correct."""
     from fastest_image_pattern_matching_tpu.ops import ncc as ncc_mod
     H, W, h, w = 420, 440, 24, 32
     assert (H - h + 1) * (W - w + 1) * h * w > ncc_mod._CONV_MAX_MACS
-    src = rng.integers(0, 256, size=(H, W), dtype=np.uint8)
-    templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
-    mean, norm, inv_area = _stats(templ)
-    calls = []
-    orig = {n: getattr(ncc_mod, n) for n in ("ccorr_banded", "ccorr_fft")}
-
-    def spy(name):
-        def f(*a, **k):
-            calls.append(name)
-            return orig[name](*a, **k)
-        return f
-
-    for n in orig:
-        setattr(ncc_mod, n, spy(n))
-    try:
-        got = np.asarray(ncc_mod.ncc_score_map(
-            jnp.asarray(src, jnp.float32)[None],
-            jnp.asarray(templ, jnp.float32),
-            mean, norm, inv_area, False, "bf16", method="auto"))[0]
-    finally:
-        for n, f in orig.items():
-            setattr(ncc_mod, n, f)
-    assert calls == ["ccorr_fft"], calls
-    ref = cv2.matchTemplate(src, templ, cv2.TM_CCOEFF_NORMED)
-    np.testing.assert_allclose(got, ref, atol=2e-3)
-
-
-def test_ncc_banded_int8_accumulator_gate(rng):
-    """int8 banded past the h*w*128^2 int32 bound must fall back to bf16
-    inside ccorr_banded (same API, still exact for integer inputs)."""
-    from fastest_image_pattern_matching_tpu.ops.ncc import (ccorr_banded,
-                                                            ccorr_conv)
-    # h*w = 368*368 > 2^31/128^2 = 131072 -> int8 ineligible
-    h = w = 368
-    src = rng.integers(0, 256, size=(1, h + 8, w + 8), dtype=np.uint8)
-    templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
-    sc = jnp.asarray(src, jnp.float32) - 128.0
-    tc = jnp.asarray(templ, jnp.float32) - 128.0
-    a = np.asarray(ccorr_banded(sc, tc, "int8"))
-    b = np.asarray(ccorr_conv(sc, tc, "f32"))
-    np.testing.assert_allclose(a, b, rtol=1e-6)
-
-
-def test_ncc_shiftmm_int8_large_roi(rng):
-    """ADVICE r2: the shiftmm int8 bound is h*w (padded shifted entries
-    contribute zero products) — a large ROI whose H*W exceeds the old
-    bound but whose h*w does not must stay int8-exact."""
-    from fastest_image_pattern_matching_tpu.ops.ncc import (ccorr_conv,
-                                                            ccorr_shiftmm)
-    # h*w = 320*360 = 115200 < 131072;  H*W = 326*366 = 119316... both under
-    # -> also test h*w just below with H*W just above 131072:
-    h, w = 350, 374   # h*w = 130900 < 131072
-    H, W = 356, 380   # H*W = 135280 > 131072 (old bound would reject)
     src = rng.integers(0, 256, size=(1, H, W), dtype=np.uint8)
     templ = rng.integers(0, 256, size=(h, w), dtype=np.uint8)
-    sc = jnp.asarray(src, jnp.float32) - 128.0
-    tc = jnp.asarray(templ, jnp.float32) - 128.0
-    a = np.asarray(ccorr_shiftmm(sc, tc, "int8"))
-    b = np.asarray(ccorr_conv(sc, tc, "f32"))
-    np.testing.assert_allclose(a, b, rtol=1e-6)
+    calls, got = _auto_calls(monkeypatch, src, templ)
+    assert calls == ["ccorr_fft"], calls
+    ref = cv2.matchTemplate(src[0], templ, cv2.TM_CCOEFF_NORMED)
+    np.testing.assert_allclose(got[0], ref, atol=2e-3)
 
 
 def test_ncc_method_name_validated():

@@ -66,8 +66,11 @@ def test_nms_clip_halfplane():
 
 
 def test_subpixel_pinv():
-    _assert_all_highest(subpixel.subpixel_refine,
-                        jnp.zeros((5, 3, 3, 3), F32), F32(0.01))
+    """The fit is a fixed-order sum of products (an exact formulation):
+    no f32 contraction, so no TF32, is left in it."""
+    found = _f32_contractions(subpixel.subpixel_refine,
+                              jnp.zeros((5, 3, 3, 3), F32), F32(0.01))
+    assert not found, found
 
 
 def test_orb_project():
@@ -90,19 +93,17 @@ def test_orb_harris_and_blur():
         jnp.full((4, 2), 20.0, F32), jnp.zeros((4,), F32))
 
 
-@pytest.mark.parametrize("form", [ncc.ccorr_conv, ncc.ccorr_shiftmm,
-                                  ncc.ccorr_banded])
+@pytest.mark.parametrize("form", [ncc.ccorr_conv, ncc.ccorr_shiftmm])
 def test_ccorr_f32_branch(form):
     _assert_all_highest(lambda c, t: form(c, t, "f32"),
                         jnp.zeros((2, 20, 24), F32), jnp.zeros((16, 20), F32))
 
 
-@pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("form", [ncc.ccorr_conv, ncc.ccorr_shiftmm,
-                                  ncc.ccorr_banded])
+@pytest.mark.parametrize("dtype", ["bf16"])
+@pytest.mark.parametrize("form", [ncc.ccorr_conv, ncc.ccorr_shiftmm])
 def test_ccorr_narrow_branches_have_no_f32_contraction(form, dtype):
-    """bf16/int8 operands are exact by construction: no f32 contraction
-    (and so no TF32 rounding) is left in those branches."""
+    """bf16 operands are exact by construction: no f32 contraction (and
+    so no TF32 rounding) is left in that branch."""
     found = _f32_contractions(lambda c, t: form(c, t, dtype),
                               jnp.zeros((2, 20, 24), F32),
                               jnp.zeros((16, 20), F32))

@@ -132,7 +132,7 @@ def _corr_rows(b, tag, B, H, W, h, w, methods):
     tj = jnp.asarray(tpl)
     shape = dict(shape=[B, H, W, h, w], auto=ncc.choose_method(B, H, W, h, w))
     for m in methods:
-        for dt in (("f32",) if m == "fft" else ("int8", "bf16", "f32")):
+        for dt in (("f32",) if m == "fft" else ("bf16", "f32")):
             fn = jax.jit(lambda c, t, m=m, dt=dt: ncc.ncc_score_map(
                 c, t, mean, norm, 1.0 / tpl.size, False, dt, m))
             b.time("corr", f"{tag} {m} {dt}", fn, (canv, tj), **shape)
@@ -152,8 +152,6 @@ def bench_corr(b, plans):
     for tag, B, H, W, h, w in rows:
         Ho, Wo = H - h + 1, W - w + 1
         methods = ["conv", "fft"]
-        if h * W * Wo <= 512 * 1024 * 1024:
-            methods.append("banded")
         if Ho * Wo <= 4096:
             methods.append("shiftmm")
         _corr_rows(b, tag, B, H, W, h, w, methods)
@@ -163,10 +161,7 @@ def bench_auto_grid(b):
     """Square maps x templates: the table ncc_score_map's auto is fit to."""
     for H in (128, 512, 1824):
         for h in (9, 27, 64):
-            methods = ["conv", "fft"]
-            if h * H * (H - h + 1) <= 512 * 1024 * 1024:
-                methods.append("banded")
-            _corr_rows(b, f"grid H{H} h{h}", 1, H, H, h, h, methods)
+            _corr_rows(b, f"grid H{H} h{h}", 1, H, H, h, h, ["conv", "fft"])
     for (h, w) in ((17, 24), (66, 96), (521, 762)):
         for d in (7, 32):
             _corr_rows(b, f"grid small-out {h}x{w} d{d}", 24, h + d - 1,
